@@ -1,0 +1,28 @@
+"""Device selection shared by the port's entry points.
+
+Every entry point takes ``device``: ``None`` means the CUDA card and raises
+when there is none — the port never moves quietly to the CPU. Tests pass
+``device="cpu"``, which runs the plain PyTorch versions of the kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "port on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,1 @@
+"""Port of the matching ``rtabmap_tpu`` subpackage."""
