@@ -10,15 +10,29 @@ Phases — any failure ends the run with a non-zero exit code:
 2. build: compiles every kernel of the path from ``rtabmap_tpu_torch/csrc``
    (one nvcc per source, all at once) into ``build/``;
 3. kernels: holds each kernel against its plain PyTorch version on the card
-   (vocabulary 2-NN at the main path's shape Q=400 x W=262144 and at a
-   ragged Q=37 x W=5000; exact equality) and times kernel, plain version,
-   one PyTorch library call of the same function, and the bound;
-4. slice: the appearance-only BOWMapping tick — ``FeatureExtractor.extract``
-   -> ``Rtabmap.process`` with RGBD/Enabled=false on cuda, 640x480 renders
-   of two 150-frame laps, 400 keypoints, the default 262144-word
-   vocabulary, 1024 node slots. Kernel launch counts are zeroed right
-   before and read right after; lap 2 must close with lap-1 nodes of the
-   same viewpoint at least as often as the threshold below.
+   with exact equality, and times kernel, plain version, one PyTorch
+   library call of the same function, and the bound: the vocabulary 2-NN
+   (K1) at the main path's shape Q=400 x W=262144 and at a ragged
+   Q=37 x W=5000; the 3-D 1-NN (K2) at the LiDAR path's shapes, a
+   28800-point VLP-16 scan against a 2048- and a 16384-point odometry map
+   and against another scan, and at a ragged 37 x 5000 with 30% invalid
+   and duplicated points, at 64 x 1000 with no valid point and at 1 x 1;
+4. slice ``bow_mapping``: the appearance-only tick —
+   ``FeatureExtractor.extract`` -> ``Rtabmap.process`` with
+   RGBD/Enabled=false on cuda, 640x480 renders of two 150-frame laps, 400
+   keypoints, the default 262144-word vocabulary, 1024 node slots; lap 2
+   must close with lap-1 nodes of the same viewpoint at least as often as
+   the threshold below;
+5. slice ``lidar_mapping``: ``run_lidar_mapping`` (scan-to-map ICP
+   odometry, proximity closures, dense pose graph, voxel map) on cuda over
+   ``lidar_trajectory(150, radius=2.0)`` with sensor-frame noise of
+   sigma 0.01 m: first at the parity width 16 x 225, held against the JAX
+   package's CPU run of the same sequence (``scripts/jax_lidar_mapping.py``),
+   then at the full VLP-16 width 16 x 1800 = 28800 points a scan with a
+   16384-point local map, held against the simulator's ground truth, timed.
+
+Each slice zeroes the launch counts of its kernels right before it and
+reads them right after; they must equal the calls the slice made.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -32,13 +46,19 @@ import time
 import numpy as np
 import torch
 
+from rtabmap_tpu_torch.datasets.synthetic import VLP16_AZIMUTH
+from rtabmap_tpu_torch.ops.cloud import voxel_filter
 from rtabmap_tpu_torch.ops.cuda import build
+from rtabmap_tpu_torch.ops.cuda import nn3d as K2
 from rtabmap_tpu_torch.ops.cuda import vocab_knn as K1
 from rtabmap_tpu_torch.tools import bow_laps
+from rtabmap_tpu_torch.tools import lidar_mapping as LM
 
-# H100 SXM dense peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor op/s.
+# H100 SXM dense peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor op/s,
+# float32 op/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+F32_OPS_PER_S = 67e12
 
 FRAMES_PER_LAP = bow_laps.FRAMES_PER_LAP
 # Lap-2 ticks that close with a lap-1 node of the same viewpoint (+-3
@@ -49,6 +69,25 @@ FRAMES_PER_LAP = bow_laps.FRAMES_PER_LAP
 # move a near-tie keypoint or hypothesis.
 JAX_LAP2_SAME_VIEW = 97
 LAP2_THRESHOLD = int(0.9 * JAX_LAP2_SAME_VIEW)
+
+# The LiDAR sequence: 150 frames, one closed 12.6 m loop at 0.084 m a frame
+# (walking speed at 10 Hz), sensor-frame noise sigma 0.01 m.
+LIDAR_FRAMES = 150
+LIDAR_NOISE = 0.01
+PARITY_AZIMUTH = 225          # parity width: 16 x 225 = 3600 points
+# The JAX package's CPU run of the parity-width sequence
+# (scripts/jax_lidar_mapping.py: 381.2 s on an 8-core CPU host): 150 nodes,
+# 139 proximity closures, 0 lost frames, ATE 0.02543 m after the graph
+# solve. The card must reach 90% of the closures, lose no more frames and
+# stay within 0.01 m of that ATE: sums run in another order on the card
+# (and the normals of near-collinear ring neighbourhoods are ill-
+# conditioned), which moves a borderline registration.
+JAX_LIDAR_CLOSURES = 139
+JAX_LIDAR_LOST = 0
+JAX_LIDAR_ATE = 0.025430718484748708
+# Full width: the bound the JAX package's own scan-odometry test holds its
+# odometry to (tests/test_scan_odometry.py), here for the solved graph.
+FULL_WIDTH_ATE = 0.05
 
 
 def fail(msg: str):
@@ -150,6 +189,85 @@ def check_knn2():
             "library_ms": main_shape["library_ms"]}
 
 
+def nn3d_cases():
+    """(name, src, dst, dst_valid) on the card. The two LiDAR path shapes
+    use two consecutive VLP-16 scans of the slice's sequence: the odometry
+    search takes a whole scan against the local map (voxel-filtered points
+    of the other scan, spread over it): 2048 points as in the parity-width
+    run (OdomF2M/ScanMaxSize), 16384 as in the full-width run; the closure
+    search a whole scan against a voxel-filtered scan. Then the edge cases."""
+    dev = torch.device("cuda")
+    _, scans = LM.sensor_sequence(2, noise=LIDAR_NOISE, device=dev)
+    (a, a_valid), (b, _) = list(scans)
+    a_mask = voxel_filter(a, a_valid, 0.05)
+    idx = torch.nonzero(a_mask)[:, 0]
+    cases = []
+    for name, m in (("odometry-2048", 2048), ("odometry", LM.VLP16_MAP_CAPACITY)):
+        # a full map holds valid points only; repeat the scan's to fill it
+        sel = idx.repeat(-(-m // idx.numel()))[:m] if m > idx.numel() else \
+            idx[:: max(1, idx.numel() // m)][:m]
+        cases.append((name, b, a[sel].contiguous(), torch.ones(m, dtype=torch.bool, device=dev)))
+    cases.append(("closure", b, a, a_mask))
+    rng = np.random.default_rng(2)
+    dst = rng.normal(size=(5000, 3)).astype(np.float32)
+    dst[rng.integers(0, 5000, 500)] = dst[rng.integers(0, 5000, 500)]
+    src = rng.normal(size=(37, 3)).astype(np.float32)
+    src[:18] = dst[rng.integers(0, 5000, 18)]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    cases.append(("ragged", t(src), t(dst), t(rng.random(5000) >= 0.3)))
+    cases.append(("no-valid", t(rng.normal(size=(64, 3)).astype(np.float32)),
+                  t(rng.normal(size=(1000, 3)).astype(np.float32)), t(np.zeros(1000, bool))))
+    cases.append(("one", t(np.ones((1, 3), np.float32)), t(np.zeros((1, 3), np.float32)),
+                  t(np.ones(1, bool))))
+    return cases
+
+
+def nn3d_library(src, dst, valid):
+    """One PyTorch library distance call + mask + min computing the same
+    nearest neighbour (the yardstick; the port never calls it)."""
+    d = torch.cdist(src, dst).masked_fill(~valid, float("inf"))
+    return d.min(dim=1)
+
+
+def nn3d_bound_ms(Q: int, valid) -> tuple:
+    """Least time for the work these inputs need: queries and points read
+    once, outputs written once; 8 float32 operations a pair of a query
+    and a valid point (3 subtractions, 3 multiplications, 2 additions)."""
+    N = valid.shape[0]
+    bytes_ = 12 * Q + 12 * N + N + 8 * Q
+    ops = 8.0 * Q * int(valid.sum())
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_nn3d():
+    rows = {}
+    for name, src, dst, valid in nn3d_cases():
+        d, i = K2.nn3d(src, dst, valid)
+        torch.cuda.synchronize()
+        dr, ir = K2.nn3d_reference(src, dst, valid)
+        if not (torch.equal(d, dr) and torch.equal(i, ir)):
+            bad = int(((d != dr) | (i != ir)).sum())
+            fail(f"nn3d disagrees with its plain version on {bad} of {src.shape[0]} "
+                 f"queries ({name}, Q={src.shape[0]} N={dst.shape[0]})")
+        row = {"kernel": "nn3d", "case": name, "Q": src.shape[0], "N": dst.shape[0],
+               "n_valid": int(valid.sum()), "equal": True}
+        if name in ("odometry-2048", "odometry", "closure"):
+            bound, bound_by = nn3d_bound_ms(src.shape[0], valid)
+            row.update(kernel_ms=time_ms(lambda: K2.nn3d(src, dst, valid)),
+                       plain_ms=time_ms(lambda: K2.nn3d_reference(src, dst, valid), reps=10),
+                       library_ms=time_ms(lambda: nn3d_library(src, dst, valid), reps=10),
+                       bound_us=bound * 1e3, bound_by=bound_by)
+        print(json.dumps(row), flush=True)
+        rows[name] = row
+    main_shape = rows["closure"]
+    return {"name": "nn3d", "route": "cuda", "source": "rtabmap_tpu_torch/csrc/nn3d.cu",
+            "replaces": "rtabmap_tpu/ops/pallas/nn3d.py:56", "max_abs_err": 0.0,
+            "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_us"] * 1e-3, "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"]}
+
+
 # -------------------------------------------------------------------- slice
 
 
@@ -183,6 +301,54 @@ def run_slice():
     return launches
 
 
+def run_lidar(n_azimuth: int, map_capacity: int) -> dict:
+    """One LiDAR mapping run on the card (tools/lidar_mapping.py) over the
+    slice's sequence at ``n_azimuth`` x 16; checks that every state tensor
+    lies on the card and that K2 launched once for each search the tool
+    asked for."""
+    dev = torch.device("cuda")
+    gt, scans = LM.sensor_sequence(LIDAR_FRAMES, n_azimuth=n_azimuth, noise=LIDAR_NOISE,
+                                   device=dev)
+    K2.nn3d.launches = 0
+    out = LM.run_lidar_mapping(scans, gt_poses=gt, device=dev, map_capacity=map_capacity)
+    launches = K2.nn3d.launches
+    st = out["odometry"].state
+    for name, t in (("map points", st.map_pts), ("map normals", st.map_nrm),
+                    ("map flags", st.map_valid), ("odometry pose", st.pose),
+                    ("graph poses", out["graph"].poses), ("graph information", out["graph"].edges_info),
+                    ("voxel bricks", out["voxel_map"].bricks)):
+        if t.device.type != "cuda":
+            fail(f"{name} lies on {t.device}")
+    if launches != out["nn3d_searches"] or launches == 0:
+        fail(f"nn3d launched {launches} times for {out['nn3d_searches']} searches")
+    poses = np.stack([out["poses"][i] for i in sorted(out["poses"])])
+    if not (np.isfinite(poses).all() and np.isfinite(out["ate_slam"])):
+        fail("non-finite poses or ATE")
+    res = {"slice": "lidar_mapping", "points": n_azimuth * 16, "frames": LIDAR_FRAMES,
+           "map_capacity": map_capacity,
+           "nn3d_launches": launches, **LM.summary(out)}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def run_lidar_slices() -> int:
+    """The parity-width run against the JAX CPU numbers, then the full-width
+    run against the ground truth; returns K2's launches in the latter."""
+    par = run_lidar(PARITY_AZIMUTH, 2048)
+    if par["closures"] < int(0.9 * JAX_LIDAR_CLOSURES):
+        fail(f"parity width: {par['closures']} closures, JAX CPU {JAX_LIDAR_CLOSURES}")
+    if par["lost"] > JAX_LIDAR_LOST:
+        fail(f"parity width: {par['lost']} lost frames, JAX CPU {JAX_LIDAR_LOST}")
+    if par["ate_slam"] > JAX_LIDAR_ATE + 0.01:
+        fail(f"parity width: ATE {par['ate_slam']:.4f} m, JAX CPU {JAX_LIDAR_ATE:.4f} m")
+    full = run_lidar(VLP16_AZIMUTH, LM.VLP16_MAP_CAPACITY)
+    if full["lost"] != 0 or full["nodes"] != LIDAR_FRAMES:
+        fail(f"full width: {full['nodes']} nodes, {full['lost']} lost")
+    if full["ate_slam"] > FULL_WIDTH_ATE:
+        fail(f"full width: ATE {full['ate_slam']:.4f} m > {FULL_WIDTH_ATE} m")
+    return full["nn3d_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -192,7 +358,7 @@ def main():
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    reports = build.build_all([K1.SOURCE])
+    reports = build.build_all([K1.SOURCE, K2.SOURCE])
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "built": sorted(reports)}), flush=True)
     for name, rep in reports.items():
@@ -201,10 +367,12 @@ def main():
                 print(f"[{name}] {line.strip()}", file=sys.stderr)
 
     k1 = check_knn2()
+    k2 = check_nn3d()
     k1["launches"] = run_slice()
+    k2["launches"] = run_lidar_slices()
 
     print(card)
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

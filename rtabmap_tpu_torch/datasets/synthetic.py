@@ -1,8 +1,8 @@
 """Synthetic scenes: a value-noise textured box room rendered analytically,
 its loop trajectory, and a render-free landmark world for engine tests.
 
-Port of ``World``, ``_hash2``/``value_noise``, ``render``,
-``loop_trajectory`` and ``FeatureWorld`` from
+Port of ``World``, ``_hash2``/``value_noise``, ``render``, ``lidar_scan``,
+``lidar_trajectory``, ``loop_trajectory`` and ``FeatureWorld`` from
 ``rtabmap_tpu/datasets/synthetic.py``. Camera convention: optical frame
 (x right, y down, z forward), pose = camera-in-world (3,4).
 """
@@ -164,3 +164,84 @@ class FeatureWorld:
             uv=torch.from_numpy(uv).to(dev), desc=torch.from_numpy(self.desc[idx]).to(dev),
             pts3d=torch.from_numpy(pts).to(dev), valid=ones, valid3d=ones,
             angle=zeros, response=zeros)
+
+
+# ----------------------------------------------------------------- lidar
+
+# A Velodyne VLP-16 at its default 600 rpm: 16 rings over +-15 degrees of
+# elevation, 1800 azimuth steps of 0.2 degrees, 10 scans a second (the
+# sensor of the reference's examples/LidarMapping).
+VLP16_RINGS = 16
+VLP16_AZIMUTH = 1800
+VLP16_ELEV_SPAN = float(np.radians(15.0))
+VLP16_HZ = 10.0
+
+
+def sensor_noise(rng: np.random.Generator, n_points: int, sigma: float) -> np.ndarray:
+    """(n_points, 3) float32 range noise in the sensor frame, drawn from a
+    seeded numpy generator, so that two implementations fed the same
+    generator get the same noise."""
+    return (sigma * rng.standard_normal((n_points, 3))).astype(np.float32)
+
+
+def lidar_scan(pose_sw, n_azimuth: int = 360, n_rings: int = 8,
+               room_half=(4.0, 3.0, 1.5), pillars=((1.5, 0.8, 0.4), (-2.0, -1.2, 0.5)),
+               elev_span: float = 0.35, noise: float = 0.0,
+               generator: torch.Generator = None, device: DeviceLike = None):
+    """Analytic multi-ring 360-degree LiDAR in a box room with cylindrical
+    pillars. Returns (N,3) points in the SENSOR frame and the validity
+    mask, N = n_azimuth * n_rings, for ``pose_sw`` (3,4 sensor-in-world).
+    The room is the box |x|<hx, |y|<hy, |z|<hz; pillars are vertical
+    cylinders (cx, cy, r). ``noise`` > 0 adds world-frame Gaussian noise
+    drawn from ``generator`` (a generator on the same device)."""
+    dev = resolve_device(device)
+    pose = torch.as_tensor(np.asarray(pose_sw, np.float32), device=dev)
+    hx, hy, hz = room_half
+    az = torch.arange(n_azimuth, dtype=torch.float32, device=dev) * np.float32(2.0 * np.pi / n_azimuth)
+    el = torch.linspace(-elev_span, elev_span, n_rings, device=dev)
+    azg, elg = torch.meshgrid(az, el, indexing="ij")
+    d_s = torch.stack([torch.cos(elg) * torch.cos(azg),
+                       torch.cos(elg) * torch.sin(azg),
+                       torch.sin(elg)], dim=-1).reshape(-1, 3)
+    R = pose[:, :3]
+    o = pose[:, 3]
+    d = d_s @ R.T
+
+    # exit distance through the box (the sensor is inside): per-axis slab exit
+    half = torch.tensor([hx, hy, hz], dtype=torch.float32, device=dev)
+    safe = torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
+    t = ((torch.sign(safe) * half - o) / safe).min(dim=-1).values
+
+    # cylinder pillars: |o_xy + t d_xy - c|^2 = r^2, nearest positive hit
+    for (cx, cy, r) in pillars or ():
+        oc = o[:2] - torch.tensor([cx, cy], dtype=torch.float32, device=dev)
+        a = (d[:, :2] ** 2).sum(-1)
+        b = 2.0 * (d[:, :2] @ oc)
+        c = (oc ** 2).sum() - r * r
+        disc = b * b - 4 * a * c
+        hit = disc > 0
+        tc = (-b - torch.sqrt(torch.where(hit, disc, torch.zeros_like(disc)))) / torch.clamp_min(2 * a, 1e-12)
+        t = torch.where(hit & (tc > 0.05) & (tc < t), tc, t)
+
+    pts_w = o[None] + t[:, None] * d
+    if noise > 0.0:
+        pts_w = pts_w + noise * torch.randn(pts_w.shape, generator=generator, device=dev)
+    pts_s = (pts_w - o[None]) @ R
+    valid = (t > 0.05) & torch.isfinite(t)
+    return pts_s, valid
+
+
+def lidar_trajectory(n: int, radius: float = 2.0) -> np.ndarray:
+    """Closed planar loop for the LiDAR simulator: the sensor circles the
+    room centre with its x axis tangent to the motion. Returns (n,3,4)
+    float32 sensor-in-world poses."""
+    poses = []
+    for i in range(n):
+        a = 2.0 * np.pi * i / n
+        pos = np.array([radius * np.cos(a), radius * np.sin(a), 0.0], np.float32)
+        fwd = np.array([-np.sin(a), np.cos(a), 0.0], np.float32)
+        up = np.array([0.0, 0.0, 1.0], np.float32)
+        left = np.cross(up, fwd)
+        Rsw = np.stack([fwd, left, up], axis=1)
+        poses.append(np.concatenate([Rsw, pos[:, None]], axis=1))
+    return np.stack(poses).astype(np.float32)

@@ -1,7 +1,10 @@
-"""Rigid 3x4 transforms: the host ``np_*`` helpers and tensor accessors.
+"""SE(3) / SO(3) batched geometry and the host ``np_*`` helpers.
 
-Port of the parts of ``rtabmap_tpu/geometry/transform.py`` that the
-appearance-only engine and the renderer reach. Poses are (3,4) [R | t].
+Port of ``rtabmap_tpu/geometry/transform.py`` (minus the quaternion and
+Euler conversions, which the ported paths do not reach). A pose is a
+``(..., 3, 4)`` tensor ``[R | t]``, batch dims leading. Tangent vectors are
+``(..., 6)`` ``[rho(3), phi(3)]``, translation first. The functions are
+pure (no in-place ops), so ``torch.func.jacfwd``/``vmap`` go through them.
 """
 from __future__ import annotations
 
@@ -15,12 +18,174 @@ def identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
     return eye.expand(*batch_shape, 3, 4)
 
 
+_EPS = 1e-9
+
+
+def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Pose(s) from rotation (...,3,3) and translation (...,3)."""
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
 def rotation(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3, :3]
 
 
 def translation(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3, 3]
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...ij,...j->...i", M, v)
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for 3x4 rigid transforms (batched)."""
+    Ra, ta = rotation(A), translation(A)
+    return from_rt(Ra @ rotation(B), _mv(Ra, translation(B)) + ta)
+
+
+def inverse(T: torch.Tensor) -> torch.Tensor:
+    Rt = rotation(T).transpose(-1, -2)
+    return from_rt(Rt, -_mv(Rt, translation(T)))
+
+
+def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """T (...,3,4) applied to pts (...,N,3) -> (...,N,3)."""
+    return (torch.einsum("...ij,...nj->...ni", rotation(T), pts)
+            + translation(T)[..., None, :])
+
+
+def relative(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^-1 @ B: the motion taking frame A to frame B."""
+    return compose(inverse(A), B)
+
+
+# ----------------------------------------------------------------- SO(3)
+
+
+def _eye_like(K: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
+
+
+def so3_hat(phi: torch.Tensor) -> torch.Tensor:
+    """(...,3) -> (...,3,3) skew-symmetric."""
+    x, y, z = phi[..., 0], phi[..., 1], phi[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], dim=-1),
+                        torch.stack([z, zero, -x], dim=-1),
+                        torch.stack([-y, x, zero], dim=-1)], dim=-2)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rodrigues (...,3) -> (...,3,3), Taylor-blended near phi = 0."""
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS))
+    small = theta2 < 1e-8
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    K = so3_hat(phi)
+    return _eye_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> (...,3), with the small-angle and near-pi branches of
+    the JAX twin, every branch evaluated on guarded inputs (finite forward
+    derivatives at the identity)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    vee = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                       R[..., 0, 2] - R[..., 2, 0],
+                       R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_sq = (vee * vee).sum(-1) * 0.25
+    sin_t = torch.sqrt(torch.clamp_min(sin_sq, 1e-24))
+    theta = torch.atan2(sin_t, cos_t)
+    small = theta < 1e-4
+    sin_safe = torch.where(small, torch.ones_like(sin_t), sin_t)
+    scale = torch.where(small, 0.5 + theta * theta / 12.0, theta / (2.0 * sin_safe))
+    generic = scale[..., None] * vee
+    near_pi = theta > np.pi - 1e-3
+    B = (R + R.transpose(-1, -2)) * 0.5
+    diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    denom = torch.where(near_pi, 1.0 - cos_t, torch.ones_like(cos_t))[..., None]
+    axis_sq = torch.clamp_min((diag - cos_t[..., None]) / denom, 0.0)
+    axis = torch.sqrt(torch.clamp_min(axis_sq, 1e-24))
+    axis = axis * torch.where(vee >= 0, 1.0, -1.0)
+    axis = axis / torch.clamp_min(torch.linalg.norm(axis, dim=-1, keepdim=True), _EPS)
+    return torch.where(near_pi[..., None], axis * theta[..., None], generic)
+
+
+def _so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """V such that the se3_exp translation is V @ rho."""
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS))
+    small = theta2 < 1e-8
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    K = so3_hat(phi)
+    return _eye_like(K) + b[..., None, None] * K + c[..., None, None] * (K @ K)
+
+
+def _so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS))
+    small = theta2 < 1e-8
+    half = theta * 0.5
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.clamp_min(torch.sin(half), _EPS))
+        / torch.clamp_min(theta2, _EPS))
+    K = so3_hat(phi)
+    return _eye_like(K) - 0.5 * K + cot_term[..., None, None] * (K @ K)
+
+
+# ----------------------------------------------------------------- SE(3)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """(...,6) [rho, phi] -> (...,3,4)."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    return from_rt(so3_exp(phi), _mv(_so3_left_jacobian(phi), rho))
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(...,3,4) -> (...,6) [rho, phi]."""
+    phi = so3_log(rotation(T))
+    rho = _mv(_so3_left_jacobian_inv(phi), translation(T))
+    return torch.cat([rho, phi], dim=-1)
+
+
+def retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Right-multiplicative retraction T * exp(xi)."""
+    return compose(T, se3_exp(xi))
+
+
+def retract_left(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Left-multiplicative retraction exp(xi) * T."""
+    return compose(se3_exp(xi), T)
+
+
+def orthonormalize(T: torch.Tensor) -> torch.Tensor:
+    """Re-project the rotation onto SO(3) through its SVD (batched)."""
+    R = rotation(T)
+    U, _, Vt = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.cat([torch.ones((*det.shape, 2), dtype=R.dtype, device=R.device),
+                   det[..., None]], dim=-1)
+    return from_rt(((U * D[..., None, :]) @ Vt).to(T.dtype), translation(T))
+
+
+def rotation_angle(T: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation angle in radians, atan2(|vee|/2, (tr-1)/2)
+    (float32-accurate at small angles, unlike arccos)."""
+    R = T[..., :3, :3]
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    vee = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                       R[..., 0, 2] - R[..., 2, 0],
+                       R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_t = 0.5 * torch.linalg.norm(vee, dim=-1)
+    cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    return torch.atan2(sin_t, cos_t)
 
 
 # Host numpy forms for single (3,4) poses: per-tick pose bookkeeping stays

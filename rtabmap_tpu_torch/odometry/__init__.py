@@ -1,0 +1,76 @@
+"""Odometry strategy factory.
+
+Port of ``rtabmap_tpu/odometry/__init__.py``: the reference's
+``Odometry::create`` switch (``Odom/Strategy`` selects F2M/F2F/Mono or one
+of the external-library wrappers), with its ``Reg/Strategy`` = 1 (ICP)
+dispatch to the scan-to-map odometry. Of the native strategies only
+``scan_f2m`` is ported; ``f2m``, ``f2f`` and ``mono`` raise
+``NotImplementedError`` naming the slice that brings them. The external
+wrappers raise as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+from rtabmap_tpu_torch.odometry.scan_f2m import OdometryScanF2M
+from rtabmap_tpu_torch.utils.params import Parameters
+
+# reference Odom/Strategy numbering (Parameters.h: 0=F2M 1=F2F ... 12=Open3D)
+_STRATEGIES: Dict[int, str] = {
+    0: "f2m", 1: "f2f", 2: "fovis", 3: "viso2", 4: "dvo", 5: "orbslam",
+    6: "okvis", 7: "loam", 8: "msckf", 9: "vins", 10: "openvins",
+    11: "floam", 12: "open3d",
+}
+
+_EXTERNAL = {name for i, name in _STRATEGIES.items() if i >= 2}
+
+_LATER = {
+    "f2m": "the RGB-D odometry slice (odometry/f2m.py with optim/ba.py)",
+    "f2f": "a later slice (odometry/f2f.py)",
+    "mono": "a later slice (odometry/mono.py)",
+}
+
+
+def _external_stub(name: str) -> Callable:
+    def make(*a, **kw):
+        raise RuntimeError(
+            f"odometry strategy '{name}' wraps an external library "
+            f"(reference: corelib/src/odometry/Odometry{name.capitalize()}.cpp) "
+            f"and is not available; use one of {sorted(set(_REGISTRY) - _EXTERNAL)}")
+    return make
+
+
+def _later_stub(name: str) -> Callable:
+    def make(*a, **kw):
+        raise NotImplementedError(
+            f"odometry strategy '{name}' is not ported yet: it comes with {_LATER[name]}")
+    return make
+
+
+_REGISTRY: Dict[str, Callable] = {name: _later_stub(name) for name in _LATER}
+# the reference reaches scan/ICP odometry through OdometryF2M + Reg/Strategy=1
+_REGISTRY["scan_f2m"] = OdometryScanF2M
+_REGISTRY.update({n: _external_stub(n) for n in _EXTERNAL})
+
+
+def available_strategies() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+def create_odometry(cam, params=None, **kwargs):
+    """Factory honouring ``Odom/Strategy`` (int, reference numbering) or a
+    strategy name in ``kwargs['strategy']``; other kwargs (``device``, ...)
+    go to the strategy."""
+    strategy = kwargs.pop("strategy", None)
+    if strategy is None:
+        p = params or Parameters()
+        strategy = _STRATEGIES.get(int(p["Odom/Strategy"]), "f2m")
+        # Registration::create in the reference's Odometry constructor
+        if strategy == "f2m" and int(p["Reg/Strategy"]) == 1:
+            strategy = "scan_f2m"
+    if isinstance(strategy, int):
+        strategy = _STRATEGIES.get(strategy, "f2m")
+    if strategy not in _REGISTRY:
+        raise KeyError(f"unknown odometry strategy '{strategy}'; "
+                       f"available: {available_strategies()}")
+    return _REGISTRY[strategy](cam, params, **kwargs)

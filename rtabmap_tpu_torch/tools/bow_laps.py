@@ -31,7 +31,7 @@ from rtabmap_tpu_torch.datasets.synthetic import loop_trajectory, render
 from rtabmap_tpu_torch.device import DeviceLike, resolve_device
 from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
 from rtabmap_tpu_torch.geometry import camera as C
-from rtabmap_tpu_torch.utils.logging import Statistics
+from rtabmap_tpu_torch.utils.logging import Statistics, device_busy_us
 from rtabmap_tpu_torch.utils.params import Parameters
 
 FRAMES_PER_LAP = 150
@@ -122,24 +122,6 @@ def run(device: DeviceLike = None, frames_per_lap: int = FRAMES_PER_LAP,
     return out
 
 
-def _device_busy_us(prof) -> Tuple[float, int]:
-    """(union of the traced device intervals in us, their count): kernels
-    and copies alike."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        return 0.0, 0
-    busy, (cur_s, cur_e) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    return busy, len(spans)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None)
@@ -166,7 +148,7 @@ def main(argv=None):
     summary = res.summary()
     if prof is not None:
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
-        busy_us, n_device_ops = _device_busy_us(prof)
+        busy_us, n_device_ops = device_busy_us(prof)
         summary["profile_lap2"] = {
             "ticks": args.frames_per_lap,
             "wall_ms": window["wall_us"] / 1e3,

@@ -2,7 +2,8 @@
 
 Port of ``rtabmap_tpu/utils/logging.py`` without the profiler hooks:
 ``get_logger``, ``Timer`` and ``Statistics`` (a flat ``Timing/*``,
-``Memory/*``, ``Loop/*`` ... name -> float map per ``process()`` call).
+``Memory/*``, ``Loop/*`` ... name -> float map per ``process()`` call),
+plus ``device_busy_us``, which reads a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import logging
 import sys
 import time
 from contextlib import contextmanager
-from typing import Dict
+from typing import Dict, Tuple
 
 _logger = logging.getLogger("rtabmap_tpu_torch")
 if not _logger.handlers:
@@ -58,3 +59,22 @@ class Statistics:
         t0 = time.perf_counter()
         yield
         self.data[key] = (time.perf_counter() - t0) * 1000.0  # ms
+
+
+def device_busy_us(prof) -> Tuple[float, int]:
+    """(union of the device intervals of a ``torch.profiler`` trace in us,
+    their count): kernels and copies alike."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return 0.0, 0
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s, len(spans)

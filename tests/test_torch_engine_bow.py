@@ -22,6 +22,7 @@ from rtabmap_tpu_torch.engine.rtabmap import Rtabmap as TRtabmap
 from rtabmap_tpu_torch.engine.state import SIGNATURE_FIELDS, engine_from_numpy
 from rtabmap_tpu_torch.geometry import camera as TC
 from rtabmap_tpu_torch.utils.params import Parameters as TParams
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 K = 128
 # __graft_entry__._dryrun_engine_sharded's way list: 16 ways out, then a

@@ -24,6 +24,7 @@ from rtabmap_tpu_torch.core import frame as TFr
 from rtabmap_tpu_torch.datasets import synthetic as TS
 from rtabmap_tpu_torch.geometry import camera as TC
 from rtabmap_tpu_torch.ops import features as TF
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 W, H, MAX_KP = 160, 120, 64
 

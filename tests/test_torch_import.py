@@ -37,7 +37,12 @@ def test_entry_points_without_a_card_raise():
     from rtabmap_tpu_torch.core.frame import FeatureExtractor
     from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
     from rtabmap_tpu_torch.geometry import camera as C
+    from rtabmap_tpu_torch.maps.voxel import VoxelOccupancyMap
+    from rtabmap_tpu_torch.odometry import create_odometry
+    from rtabmap_tpu_torch.odometry.scan_f2m import OdometryScanF2M
+    from rtabmap_tpu_torch.ops.cuda.nn3d import nn3d
     from rtabmap_tpu_torch.ops.cuda.vocab_knn import knn2
+    from rtabmap_tpu_torch.tools.lidar_mapping import run_lidar_mapping
     from rtabmap_tpu_torch.utils.params import Parameters
     from rtabmap_tpu_torch.vocab.dictionary import VWDictionary
 
@@ -47,11 +52,20 @@ def test_entry_points_without_a_card_raise():
     s = torch.zeros((8, 256), dtype=torch.int8, device="meta")
     with pytest.raises(RuntimeError):
         knn2(q, s, torch.ones(8, dtype=torch.bool, device="meta"))
+    pts = torch.zeros((4, 3), device="meta")
+    with pytest.raises(RuntimeError):
+        nn3d(pts, pts, torch.ones(4, dtype=torch.bool, device="meta"))
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None selects it")
+    lidar_p = Parameters({"Reg/Strategy": 1})
+    scan = (np.zeros((8, 3), np.float32), np.ones(8, bool))
     for make in (lambda: Rtabmap(cam, p, node_capacity=16, words_per_frame=8),
                  lambda: FeatureExtractor(cam, p),
-                 lambda: VWDictionary(capacity=1024)):
+                 lambda: VWDictionary(capacity=1024),
+                 lambda: OdometryScanF2M(),
+                 lambda: create_odometry(None, lidar_p),
+                 lambda: run_lidar_mapping([scan]),
+                 lambda: VoxelOccupancyMap()):
         with pytest.raises(RuntimeError):
             make()
 

@@ -18,6 +18,7 @@ from rtabmap_tpu.geometry import camera as JC
 from rtabmap_tpu.vocab import dictionary as JD
 from rtabmap_tpu_torch.bayes import filter as TB
 from rtabmap_tpu_torch.vocab import dictionary as TD
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CAP = 4096
 

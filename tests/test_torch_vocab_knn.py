@@ -15,6 +15,7 @@ import torch
 from rtabmap_tpu.ops.matching import knn_blocked
 from rtabmap_tpu.ops.pallas.vocab_knn import pallas_knn2
 from rtabmap_tpu_torch.ops.cuda import vocab_knn as V
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _signs(rng, n, d=256):
