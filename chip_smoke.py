@@ -12,11 +12,17 @@ Phases — any failure ends the run with a non-zero exit code:
 3. kernels: holds each kernel against its plain PyTorch version on the card
    with exact equality, and times kernel, plain version, one PyTorch
    library call of the same function, and the bound: the vocabulary 2-NN
-   (K1) at the main path's shape Q=400 x W=262144 and at a ragged
-   Q=37 x W=5000; the 3-D 1-NN (K2) at the LiDAR path's shapes, a
+   (K1) at Q=400 against the 262144-row slab with 70% valid words, against
+   a slab whose valid words are the prefix of 31853 rows (the BOW cell's
+   end state) both whole and as the prefix the dictionary passes, and at a
+   ragged Q=37 x W=5000; the 3-D 1-NN (K2) at the LiDAR path's shapes, a
    28800-point VLP-16 scan against a 2048- and a 16384-point odometry map
-   and against another scan, and at a ragged 37 x 5000 with 30% invalid
-   and duplicated points, at 64 x 1000 with no valid point and at 1 x 1;
+   and against another scan, each unmasked and with the scans' 5 cm voxel
+   masks (queries and points), and at the edge cases: a ragged 37 x 5000
+   with 30% invalid and duplicated points, with and without a 30% query
+   mask, no valid point, no valid query, one valid query and point, 1 x 1;
+   K2's compaction kernel against its plain version; one masked search
+   under ``torch.cuda.set_sync_debug_mode("error")`` (it must not sync);
 4. slice ``bow_mapping``: the appearance-only tick —
    ``FeatureExtractor.extract`` -> ``Rtabmap.process`` with
    RGBD/Enabled=false on cuda, 640x480 renders of two 150-frame laps, 400
@@ -32,7 +38,8 @@ Phases — any failure ends the run with a non-zero exit code:
    16384-point local map, held against the simulator's ground truth, timed.
 
 Each slice zeroes the launch counts of its kernels right before it and
-reads them right after; they must equal the calls the slice made.
+reads them right after; they must equal the calls the slice made (K2:
+one search launch a search, one compaction launch a prepared destination).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -55,10 +62,11 @@ from rtabmap_tpu_torch.tools import bow_laps
 from rtabmap_tpu_torch.tools import lidar_mapping as LM
 
 # H100 SXM dense peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor op/s,
-# float32 op/s outside the tensor cores.
+# and FP32-pipe instructions/s outside the tensor cores: the data sheet's
+# 67 TFLOP/s counts an FMA as two operations, so 33.5e12 instructions.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
-F32_OPS_PER_S = 67e12
+F32_INSTR_PER_S = 67e12 / 2
 
 FRAMES_PER_LAP = bow_laps.FRAMES_PER_LAP
 # Lap-2 ticks that close with a lap-1 node of the same viewpoint (+-3
@@ -102,34 +110,53 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, inner: int = 10,
+            graph: bool = False) -> float:
+    """Per-call time of ``fn`` on the card: the median over ``reps`` of
+    CUDA-event timings of ``inner`` back-to-back calls, after warm-up.
+    Eager calls queue on the stream while the card runs, so the host's
+    launch overhead shows only where it is the slower of the two; with
+    ``graph`` the ``inner`` calls are captured in a CUDA graph and replayed,
+    which leaves the device time of the launches alone."""
     for _ in range(warmup):
         fn()
+
+    def batch():
+        for _ in range(inner):
+            fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            batch()
+        batch = g.replay
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        batch()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
 # ------------------------------------------------------------------ kernels
 
 
-def knn2_case(Q: int, W: int, seed: int):
-    """Seeded +-1 slab with 30% invalid words and duplicated rows (ties),
-    queries drawn half from the slab, one zero (invalid keypoint) row."""
+def knn2_case(Q: int, W: int, seed: int, n_prefix: int = 0):
+    """Seeded +-1 slab with duplicated rows (ties) and 30% invalid words,
+    or, with ``n_prefix``, valid words exactly the first ``n_prefix`` rows;
+    queries drawn half from the slab's valid rows, one zero (invalid
+    keypoint) row."""
     rng = np.random.default_rng(seed)
     slab = (rng.integers(0, 2, (W, 256), dtype=np.int8) * 2 - 1).astype(np.int8)
     dup = rng.integers(0, W, W // 10)
     slab[rng.integers(0, W, W // 10)] = slab[dup]
     valid = rng.random(W) >= 0.3
+    if n_prefix:
+        valid = np.arange(W) < n_prefix
     q = (rng.integers(0, 2, (Q, 256), dtype=np.int8) * 2 - 1).astype(np.int8)
-    q[: Q // 2] = slab[rng.integers(0, W, Q // 2)]
+    q[: Q // 2] = slab[rng.integers(0, n_prefix or W, Q // 2)]
     q[-1] = 0
     dev = torch.device("cuda")
     return (torch.from_numpy(q).to(dev), torch.from_numpy(slab).to(dev),
@@ -144,12 +171,10 @@ def knn2_library(q, slab, valid):
     return torch.topk(d2, 2, dim=1, largest=False)
 
 
-def knn2_bound_ms(Q: int, valid) -> tuple:
+def knn2_bound_ms(Q: int, W: int, n_valid: int) -> tuple:
     """Least time for the work these inputs need: the valid words' rows
     read once, the queries and flags read once, the (Q,2) outputs written
     once; 2*Q*n_valid*256 int8 operations."""
-    n_valid = int(valid.sum())
-    W = valid.shape[0]
     bytes_ = Q * 256 + W + n_valid * 256 + Q * 2 * 8
     ops = 2.0 * Q * n_valid * 256
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
@@ -157,115 +182,227 @@ def knn2_bound_ms(Q: int, valid) -> tuple:
 
 
 def check_knn2():
-    rows, max_err = [], 0.0
-    for Q, W, seed in ((400, 262144, 0), (37, 5000, 1)):
-        q, slab, valid = knn2_case(Q, W, seed)
-        d, i = K1.knn2(q, slab, valid)
-        torch.cuda.synchronize()
-        dr, ir = K1.knn2_reference(q, slab, valid)
-        if not (torch.equal(d, dr) and torch.equal(i[:, 0], ir[:, 0])):
-            bad = int(((d != dr).any(1) | (i[:, 0] != ir[:, 0])).sum())
-            fail(f"vocab_knn2 disagrees with its plain version at Q={Q} W={W} "
-                 f"on {bad} queries")
-        if not torch.equal(i, ir):
-            fail(f"vocab_knn2 rank-1 indices differ at Q={Q} W={W}")
-        max_err = max(max_err, float((d - dr).abs().max()))
-        bound, bound_by = knn2_bound_ms(Q, valid)
-        row = {"kernel": "vocab_knn2", "Q": Q, "W": W, "equal": True,
-               "kernel_ms": time_ms(lambda: K1.knn2(q, slab, valid)),
-               "plain_ms": time_ms(lambda: K1.knn2_reference(q, slab, valid), reps=10),
-               "library_ms": time_ms(lambda: knn2_library(q, slab, valid)),
-               "bound_us": bound * 1e3, "bound_by": bound_by}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    main_shape = rows[0]
+    """K1 bit for bit against its plain version; times at the path's
+    shapes. Returns the kernels-line entry at the dictionary's prefix call
+    of the BOW cell's end state (Q=400 x 31853 valid rows)."""
+    rows = {}
+    # BOW cell's end state: 31853 words in the 262144-row slab
+    cases = (("full-70", 400, 262144, 0, 0), ("end-state", 400, 262144, 3, 31853),
+             ("ragged", 37, 5000, 1, 0))
+    for name, Q, W, seed, n_prefix in cases:
+        q, slab, valid = knn2_case(Q, W, seed, n_prefix)
+        calls = [(name, slab, valid)]
+        if n_prefix:   # the call the dictionary makes: its valid prefix only
+            calls.append(("prefix", slab[:n_prefix], valid[:n_prefix]))
+        for label, sl, va in calls:
+            # torch._int_mm takes a multiple of 8 rows: the rows after the
+            # prefix are invalid, so the padded call computes the same 2-NN
+            w8 = -(-sl.shape[0] // 8) * 8
+            lib_args = (slab[:w8], valid[:w8])
+            d, i = K1.knn2(q, sl, va)
+            torch.cuda.synchronize()
+            dr, ir = K1.knn2_reference(q, sl, va)
+            if not (torch.equal(d, dr) and torch.equal(i, ir)):
+                bad = int(((d != dr).any(1) | (i != ir).any(1)).sum())
+                fail(f"vocab_knn2 disagrees with its plain version ({label}, Q={Q} "
+                     f"W={sl.shape[0]}) on {bad} queries")
+            if label == "prefix" and not (torch.equal(d, rows["end-state"]["_d"])
+                                          and torch.equal(i, rows["end-state"]["_i"])):
+                fail("vocab_knn2 on the valid prefix differs from the whole slab")
+            bound, bound_by = knn2_bound_ms(Q, sl.shape[0], int(va.sum()))
+            row = {"kernel": "vocab_knn2", "case": label, "Q": Q, "W": sl.shape[0],
+                   "n_valid": int(va.sum()), "equal": True,
+                   "kernel_ms": time_ms(lambda: K1.knn2(q, sl, va), graph=True),
+                   "call_ms": time_ms(lambda: K1.knn2(q, sl, va)),
+                   "plain_ms": time_ms(lambda: K1.knn2_reference(q, sl, va), reps=5, inner=2),
+                   "library_ms": time_ms(lambda: knn2_library(q, *lib_args), reps=10, inner=3),
+                   "bound_us": bound * 1e3, "bound_by": bound_by}
+            print(json.dumps(row), flush=True)
+            rows[label] = dict(row, _d=d, _i=i)
+    main_shape = rows["prefix"]
     return {"name": "vocab_knn2", "route": "cuda",
             "source": "rtabmap_tpu_torch/csrc/vocab_knn.cu",
             "replaces": "rtabmap_tpu/ops/pallas/vocab_knn.py:80",
-            "max_abs_err": max_err, "ms": main_shape["kernel_ms"],
+            "max_abs_err": 0.0, "ms": main_shape["kernel_ms"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_us"] * 1e-3,
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"]}
 
 
+# K2 cases timed beside their bound: (name, launches a full-width frame)
+NN3D_PATH = ("odometry-2048", "odometry", "closure",
+             "odometry-2048-masked", "odometry-masked", "closure-masked")
+
+
 def nn3d_cases():
-    """(name, src, dst, dst_valid) on the card. The two LiDAR path shapes
-    use two consecutive VLP-16 scans of the slice's sequence: the odometry
-    search takes a whole scan against the local map (voxel-filtered points
-    of the other scan, spread over it): 2048 points as in the parity-width
-    run (OdomF2M/ScanMaxSize), 16384 as in the full-width run; the closure
-    search a whole scan against a voxel-filtered scan. Then the edge cases."""
+    """(name, src, dst, dst_valid, src_valid) on the card. The LiDAR path
+    shapes use two consecutive VLP-16 scans of the slice's sequence: the
+    odometry search takes a scan against the local map (voxel-filtered
+    points of the other scan, spread over it): 2048 points as in the
+    parity-width run (OdomF2M/ScanMaxSize), 16384 as in the full-width run;
+    the closure search a scan against a voxel-filtered scan. Each path
+    shape runs unmasked (every query searched, as before the query mask)
+    and masked with the scan's 5 cm voxel flags, as the path calls it.
+    Then the edge cases."""
     dev = torch.device("cuda")
     _, scans = LM.sensor_sequence(2, noise=LIDAR_NOISE, device=dev)
-    (a, a_valid), (b, _) = list(scans)
+    (a, a_valid), (b, b_valid) = list(scans)
     a_mask = voxel_filter(a, a_valid, 0.05)
+    b_mask = voxel_filter(b, b_valid, 0.05)
     idx = torch.nonzero(a_mask)[:, 0]
     cases = []
     for name, m in (("odometry-2048", 2048), ("odometry", LM.VLP16_MAP_CAPACITY)):
         # a full map holds valid points only; repeat the scan's to fill it
         sel = idx.repeat(-(-m // idx.numel()))[:m] if m > idx.numel() else \
             idx[:: max(1, idx.numel() // m)][:m]
-        cases.append((name, b, a[sel].contiguous(), torch.ones(m, dtype=torch.bool, device=dev)))
-    cases.append(("closure", b, a, a_mask))
+        ones = torch.ones(m, dtype=torch.bool, device=dev)
+        cases.append((name, b, a[sel].contiguous(), ones, None))
+        cases.append((name + "-masked", b, a[sel].contiguous(), ones, b_mask))
+    cases.append(("closure", b, a, a_mask, None))
+    cases.append(("closure-masked", b, a, a_mask, b_mask))
     rng = np.random.default_rng(2)
     dst = rng.normal(size=(5000, 3)).astype(np.float32)
     dst[rng.integers(0, 5000, 500)] = dst[rng.integers(0, 5000, 500)]
     src = rng.normal(size=(37, 3)).astype(np.float32)
     src[:18] = dst[rng.integers(0, 5000, 18)]
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    cases.append(("ragged", t(src), t(dst), t(rng.random(5000) >= 0.3)))
-    cases.append(("no-valid", t(rng.normal(size=(64, 3)).astype(np.float32)),
-                  t(rng.normal(size=(1000, 3)).astype(np.float32)), t(np.zeros(1000, bool))))
+    ragged_valid = t(rng.random(5000) >= 0.3)
+    cases.append(("ragged", t(src), t(dst), ragged_valid, None))
+    cases.append(("ragged-masked", t(src), t(dst), ragged_valid, t(rng.random(37) >= 0.3)))
+    pts64, pts1000 = t(rng.normal(size=(64, 3)).astype(np.float32)), \
+        t(rng.normal(size=(1000, 3)).astype(np.float32))
+    cases.append(("no-valid-point", pts64, pts1000, t(np.zeros(1000, bool)), None))
+    cases.append(("no-valid-point-masked", pts64, pts1000, t(np.zeros(1000, bool)),
+                  t(rng.random(64) >= 0.3)))
+    cases.append(("no-valid-query", pts64, pts1000, t(np.ones(1000, bool)),
+                  t(np.zeros(64, bool))))
+    cases.append(("one-of-each", pts64, pts1000, t(np.arange(1000) == 617),
+                  t(np.arange(64) == 40)))
     cases.append(("one", t(np.ones((1, 3), np.float32)), t(np.zeros((1, 3), np.float32)),
-                  t(np.ones(1, bool))))
+                  t(np.ones(1, bool)), None))
     return cases
 
 
-def nn3d_library(src, dst, valid):
-    """One PyTorch library distance call + mask + min computing the same
+def nn3d_library(src, dst, valid, src_valid):
+    """One PyTorch library distance call + masks + min computing the same
     nearest neighbour (the yardstick; the port never calls it)."""
-    d = torch.cdist(src, dst).masked_fill(~valid, float("inf"))
-    return d.min(dim=1)
+    d, i = torch.cdist(src, dst).masked_fill(~valid, float("inf")).min(dim=1)
+    if src_valid is None:
+        return d, i
+    return d.masked_fill(~src_valid, float("inf")), i.masked_fill(~src_valid, 0)
 
 
-def nn3d_bound_ms(Q: int, valid) -> tuple:
-    """Least time for the work these inputs need: queries and points read
-    once, outputs written once; 8 float32 operations a pair of a query
-    and a valid point (3 subtractions, 3 multiplications, 2 additions)."""
-    N = valid.shape[0]
-    bytes_ = 12 * Q + 12 * N + N + 8 * Q
-    ops = 8.0 * Q * int(valid.sum())
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def nn3d_bound_ms(Q: int, N: int, n_query: int, n_point: int) -> tuple:
+    """Least time for the work these inputs need. Pairs: only those of a
+    valid query (all Q without a query mask) and a valid point: no caller
+    reads a masked query's result, and an invalid point cannot be a
+    neighbour. Each pair costs 9 FP32-pipe instructions: 3 subtractions,
+    3 multiplications, 2 additions and 1 comparison, none of which the
+    bit-exact contract lets fuse into an FMA, at 33.5e12 a second. Bytes:
+    the valid queries and points (12 bytes each) and both masks read
+    once, the (d, idx) outputs (8 bytes a query) written once."""
+    bytes_ = 12 * n_query + 12 * n_point + N + Q + 8 * Q
+    ops = 9.0 * n_query * n_point
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def compact_bound_ms(Q: int, N: int, n_point: int) -> tuple:
+    """Least time of K2's compaction: points (12 bytes) and both masks read
+    once, the compacted points (16 bytes), their indices, the query order
+    and the counts written once; no arithmetic to speak of."""
+    bytes_ = 12 * N + N + Q + 20 * n_point + 4 * Q + 8
+    return bytes_ / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_compact(name, dst, valid, src_valid):
+    """K2's compaction kernel against its plain version: the valid points
+    and their indices in order, the query order, the counts."""
+    plan = K2.nn3d_prepare(dst, valid, src_valid)
+    torch.cuda.synchronize()
+    d4, dl, ql, counts = K2.nn3d_compact_reference(dst, valid, src_valid)
+    n_pt, N = d4.shape[0], dst.shape[0]
+    got = plan.ints[-2:].cpu()
+    ok = (int(got[0]) == int(counts[0]) and torch.equal(plan.dst4[:n_pt], d4)
+          and torch.equal(plan.ints[:n_pt], dl))
+    if ql is not None:
+        ok = ok and int(got[1]) == int(counts[1]) and torch.equal(plan.ints[N:-2], ql)
+    if not ok:
+        fail(f"nn3d_compact disagrees with its plain version ({name})")
+
+
 def check_nn3d():
-    rows = {}
-    for name, src, dst, valid in nn3d_cases():
-        d, i = K2.nn3d(src, dst, valid)
+    rows, cases = {}, nn3d_cases()
+    for name, src, dst, valid, src_valid in cases:
+        check_compact(name, dst, valid, src_valid)
+        d, i = K2.nn3d(src, dst, valid, src_valid)
         torch.cuda.synchronize()
-        dr, ir = K2.nn3d_reference(src, dst, valid)
+        dr, ir = K2.nn3d_reference(src, dst, valid, src_valid)
         if not (torch.equal(d, dr) and torch.equal(i, ir)):
             bad = int(((d != dr) | (i != ir)).sum())
             fail(f"nn3d disagrees with its plain version on {bad} of {src.shape[0]} "
                  f"queries ({name}, Q={src.shape[0]} N={dst.shape[0]})")
-        row = {"kernel": "nn3d", "case": name, "Q": src.shape[0], "N": dst.shape[0],
-               "n_valid": int(valid.sum()), "equal": True}
-        if name in ("odometry-2048", "odometry", "closure"):
-            bound, bound_by = nn3d_bound_ms(src.shape[0], valid)
-            row.update(kernel_ms=time_ms(lambda: K2.nn3d(src, dst, valid)),
-                       plain_ms=time_ms(lambda: K2.nn3d_reference(src, dst, valid), reps=10),
-                       library_ms=time_ms(lambda: nn3d_library(src, dst, valid), reps=10),
-                       bound_us=bound * 1e3, bound_by=bound_by)
+        Q, N = src.shape[0], dst.shape[0]
+        n_query = Q if src_valid is None else int(src_valid.sum())
+        n_point = int(valid.sum())
+        row = {"kernel": "nn3d", "case": name, "Q": Q, "N": N, "valid_queries": n_query,
+               "valid_points": n_point, "equal": True}
+        if name in NN3D_PATH:
+            plan = K2.nn3d_prepare(dst, valid, src_valid)
+            bound, bound_by = nn3d_bound_ms(Q, N, n_query, n_point)
+            cbound, _ = compact_bound_ms(0 if src_valid is None else Q, N, n_point)
+            row.update(kernel_ms=time_ms(lambda: K2.nn3d_search(src, plan), graph=True),
+                       call_ms=time_ms(lambda: K2.nn3d_search(src, plan)),
+                       compact_ms=time_ms(lambda: K2.nn3d_prepare(dst, valid, src_valid),
+                                          graph=True),
+                       plain_ms=time_ms(lambda: K2.nn3d_reference(src, dst, valid, src_valid),
+                                        reps=5, inner=2),
+                       library_ms=time_ms(lambda: nn3d_library(src, dst, valid, src_valid),
+                                          reps=10, inner=3),
+                       bound_us=bound * 1e3, bound_by=bound_by, compact_bound_us=cbound * 1e3)
         print(json.dumps(row), flush=True)
         rows[name] = row
-    main_shape = rows["closure"]
-    return {"name": "nn3d", "route": "cuda", "source": "rtabmap_tpu_torch/csrc/nn3d.cu",
-            "replaces": "rtabmap_tpu/ops/pallas/nn3d.py:56", "max_abs_err": 0.0,
-            "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
-            "bound_ms": main_shape["bound_us"] * 1e-3, "bound_by": main_shape["bound_by"],
-            "library_ms": main_shape["library_ms"]}
+    frame = {"odometry_16x_ms": 16 * rows["odometry-masked"]["kernel_ms"],
+             "closure_16x_ms": 16 * rows["closure-masked"]["kernel_ms"]}
+    frame["sum_ms"] = frame["odometry_16x_ms"] + frame["closure_16x_ms"]
+    print(json.dumps({"kernel": "nn3d", "full_width_frame": frame}), flush=True)
+    check_no_sync()
+    main_shape = rows["odometry-masked"]
+    k2 = {"name": "nn3d", "route": "cuda", "source": "rtabmap_tpu_torch/csrc/nn3d.cu",
+          "replaces": "rtabmap_tpu/ops/pallas/nn3d.py:56", "max_abs_err": 0.0,
+          "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
+          "bound_ms": main_shape["bound_us"] * 1e-3, "bound_by": main_shape["bound_by"],
+          "library_ms": main_shape["library_ms"]}
+    # no one PyTorch call does the compaction (the plain version is a
+    # nonzero, a gather and a concatenation)
+    _, src, dst, valid, src_valid = next(c for c in cases if c[0] == "odometry-masked")
+    cb, cb_by = compact_bound_ms(src.shape[0], dst.shape[0], int(valid.sum()))
+    compact = {"name": "nn3d_compact", "route": "cuda",
+               "source": "rtabmap_tpu_torch/csrc/nn3d.cu",
+               "replaces": "rtabmap_tpu/ops/pallas/nn3d.py:56", "max_abs_err": 0.0,
+               "ms": main_shape["compact_ms"],
+               "plain_ms": time_ms(lambda: K2.nn3d_compact_reference(dst, valid, src_valid),
+                                   reps=10, inner=3),
+               "bound_ms": cb, "bound_by": cb_by, "library_ms": None}
+    return k2, compact
+
+
+def check_no_sync():
+    """A masked search, compaction included, under sync-debug "error": any
+    host synchronization inside the wrappers raises."""
+    _, scans = LM.sensor_sequence(2, noise=LIDAR_NOISE, device=torch.device("cuda"))
+    (a, a_valid), (b, b_valid) = list(scans)
+    a_mask, b_mask = voxel_filter(a, a_valid, 0.05), voxel_filter(b, b_valid, 0.05)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, i = K2.nn3d(b, a, a_mask, b_mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(json.dumps({"kernel": "nn3d", "sync_debug": "error", "synced": False,
+                      "queries": b.shape[0]}), flush=True)
 
 
 # -------------------------------------------------------------------- slice
@@ -304,14 +441,15 @@ def run_slice():
 def run_lidar(n_azimuth: int, map_capacity: int) -> dict:
     """One LiDAR mapping run on the card (tools/lidar_mapping.py) over the
     slice's sequence at ``n_azimuth`` x 16; checks that every state tensor
-    lies on the card and that K2 launched once for each search the tool
-    asked for."""
+    lies on the card and that K2 launched its search once for each search
+    the tool asked for and its compaction once for each destination the
+    tool prepared."""
     dev = torch.device("cuda")
     gt, scans = LM.sensor_sequence(LIDAR_FRAMES, n_azimuth=n_azimuth, noise=LIDAR_NOISE,
                                    device=dev)
-    K2.nn3d.launches = 0
+    K2.nn3d_search.launches = K2.nn3d_prepare.launches = 0
     out = LM.run_lidar_mapping(scans, gt_poses=gt, device=dev, map_capacity=map_capacity)
-    launches = K2.nn3d.launches
+    launches, compactions = K2.nn3d_search.launches, K2.nn3d_prepare.launches
     st = out["odometry"].state
     for name, t in (("map points", st.map_pts), ("map normals", st.map_nrm),
                     ("map flags", st.map_valid), ("odometry pose", st.pose),
@@ -321,19 +459,24 @@ def run_lidar(n_azimuth: int, map_capacity: int) -> dict:
             fail(f"{name} lies on {t.device}")
     if launches != out["nn3d_searches"] or launches == 0:
         fail(f"nn3d launched {launches} times for {out['nn3d_searches']} searches")
+    if compactions != out["nn3d_plans"] or compactions == 0:
+        fail(f"nn3d_compact launched {compactions} times for {out['nn3d_plans']} "
+             "prepared destinations")
     poses = np.stack([out["poses"][i] for i in sorted(out["poses"])])
     if not (np.isfinite(poses).all() and np.isfinite(out["ate_slam"])):
         fail("non-finite poses or ATE")
     res = {"slice": "lidar_mapping", "points": n_azimuth * 16, "frames": LIDAR_FRAMES,
            "map_capacity": map_capacity,
-           "nn3d_launches": launches, **LM.summary(out)}
+           "nn3d_launches": launches, "nn3d_compact_launches": compactions,
+           **LM.summary(out)}
     print(json.dumps(res), flush=True)
     return res
 
 
-def run_lidar_slices() -> int:
+def run_lidar_slices() -> tuple:
     """The parity-width run against the JAX CPU numbers, then the full-width
-    run against the ground truth; returns K2's launches in the latter."""
+    run against the ground truth; returns K2's search and compaction
+    launches in the latter."""
     par = run_lidar(PARITY_AZIMUTH, 2048)
     if par["closures"] < int(0.9 * JAX_LIDAR_CLOSURES):
         fail(f"parity width: {par['closures']} closures, JAX CPU {JAX_LIDAR_CLOSURES}")
@@ -346,7 +489,7 @@ def run_lidar_slices() -> int:
         fail(f"full width: {full['nodes']} nodes, {full['lost']} lost")
     if full["ate_slam"] > FULL_WIDTH_ATE:
         fail(f"full width: ATE {full['ate_slam']:.4f} m > {FULL_WIDTH_ATE} m")
-    return full["nn3d_launches"]
+    return full["nn3d_launches"], full["nn3d_compact_launches"]
 
 
 def main():
@@ -367,12 +510,12 @@ def main():
                 print(f"[{name}] {line.strip()}", file=sys.stderr)
 
     k1 = check_knn2()
-    k2 = check_nn3d()
+    k2, k2c = check_nn3d()
     k1["launches"] = run_slice()
-    k2["launches"] = run_lidar_slices()
+    k2["launches"], k2c["launches"] = run_lidar_slices()
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k2c]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

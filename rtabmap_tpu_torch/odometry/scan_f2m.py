@@ -52,6 +52,7 @@ class ScanOdomResult(NamedTuple):
     covariance: torch.Tensor    # (6,6)
     keyframe_added: torch.Tensor
     nn_searches: int            # K2 searches this tick asked for
+    nn_plans: int               # K2 destinations it prepared (one an icp() or merge)
 
 
 def init_state(map_capacity: int = 4096, device: DeviceLike = None) -> ScanF2MState:
@@ -95,8 +96,8 @@ def _merge_scan(state: ScanF2MState, pts_w: torch.Tensor, nrm_w: torch.Tensor,
     count passes about 64, and every -inf ties, so the port ranks with a
     stable descending sort (``torch.topk`` promises no tie order)."""
     kf = state.kf_count + 1.0
-    d2, _ = ICP._nn_blocked(pts_w, state.map_pts, state.map_valid)
-    novel = valid & (d2 > subtract_radius ** 2)
+    d2, _ = ICP._nn_blocked(pts_w, state.map_pts, state.map_valid, valid)
+    novel = valid & (d2 > subtract_radius ** 2)   # a masked point reads +inf
     ninf = torch.tensor(float("-inf"), device=pts_w.device)
     all_pts = torch.cat([state.map_pts, pts_w], dim=0)
     all_nrm = torch.cat([state.map_nrm, nrm_w], dim=0)
@@ -142,7 +143,8 @@ def scan_odom_step(state: ScanF2MState, scan_pts: torch.Tensor, scan_valid: torc
             pose=state.pose, success=torch.ones((), dtype=torch.bool, device=dev),
             corr_ratio=torch.ones((), device=dev), fitness_rmse=torch.zeros((), device=dev),
             covariance=torch.eye(6, device=dev) * 1e-6,
-            keyframe_added=torch.ones((), dtype=torch.bool, device=dev), nn_searches=1)
+            keyframe_added=torch.ones((), dtype=torch.bool, device=dev), nn_searches=1,
+            nn_plans=1)
         return st, res
 
     guess = T.compose(state.pose, T.se3_exp(state.vel))
@@ -160,17 +162,18 @@ def scan_odom_step(state: ScanF2MState, scan_pts: torch.Tensor, scan_valid: torc
     pose = torch.where(ok, new_pose, state.pose)
     # keyframe: the correspondence ratio fell below Odom/ScanKeyFrameThr
     add_kf = ok & (icp_res.correspondence_ratio < keyframe_thr)
-    searches = icp_iters + 1
+    searches, plans = icp_iters + 1, 1
     if bool(add_kf):
         state = merged_at(state, pose, subtract_radius)
-        searches += 1
+        searches, plans = searches + 1, plans + 1
     state = state._replace(pose=pose, vel=vel)
 
     var = torch.clamp_min(icp_res.fitness_rmse ** 2, 1e-8)
     cov = torch.where(ok, 1.0, 9999.0) * _diag_cov(var)
     res = ScanOdomResult(pose=pose, success=ok, corr_ratio=icp_res.correspondence_ratio,
                          fitness_rmse=icp_res.fitness_rmse, covariance=cov,
-                         keyframe_added=add_kf, nn_searches=searches)
+                         keyframe_added=add_kf, nn_searches=searches,
+                         nn_plans=plans)
     return state, res
 
 
@@ -211,7 +214,7 @@ class OdometryScanF2M:
             res.keyframe_added.float(), self.state.map_valid.sum().float()]).tolist()
         self.lost = not ok
         info = {"corr_ratio": ratio, "fitness_rmse": rmse, "keyframe": bool(kf),
-                "map_points": int(n_map), "nn_searches": res.nn_searches}
+                "map_points": int(n_map), "nn_searches": res.nn_searches, "nn_plans": res.nn_plans}
         if not ok:
             return None, torch.eye(6, device=self.device) * 9999.0, info
         return res.pose, res.covariance, info

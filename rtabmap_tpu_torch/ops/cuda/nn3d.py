@@ -4,25 +4,33 @@ Replaces ``rtabmap_tpu/ops/pallas/nn3d.py::pallas_nn3d``, the TPU kernel of
 the ICP correspondence search (``ops/icp.py::_nn_blocked``, reached by
 ``icp``, ``register_scans`` and the scan-odometry keyframe merge).
 
-- ``nn3d`` is the wrapper of ``csrc/nn3d.cu``. On CUDA tensors it launches
-  the kernel or raises; on CPU tensors it runs ``nn3d_reference``.
-  ``nn3d.launches`` counts kernel launches.
-- ``nn3d_reference`` is the plain PyTorch version; the CPU tests hold it
-  against the Pallas kernel in interpret mode, and ``chip_smoke.py`` holds
-  the kernel against it on the card.
+- ``nn3d_prepare`` takes a destination and, optionally, a query mask and
+  returns an ``Nn3dPlan``; on CUDA tensors it launches ``nn3d_compact``
+  (the valid points and queries compacted in order, counts kept on the
+  device). ``nn3d_search`` runs one search of a plan; on CUDA tensors it
+  launches ``nn3d_chunks`` + ``nn3d_merge``. A plan serves every search
+  of one ``icp()`` call: the destination and both masks stay fixed there.
+  ``nn3d`` is the two in one call. On CUDA tensors each launches its
+  kernel or raises; on CPU tensors they run the plain versions.
+  ``nn3d_prepare.launches`` and ``nn3d_search.launches`` count launches.
+- ``nn3d_reference`` and ``nn3d_compact_reference`` are the plain PyTorch
+  versions; the CPU tests hold the first against the Pallas kernel in
+  interpret mode, and ``chip_smoke.py`` holds both kernels against them on
+  the card. Nothing here syncs with the host.
 
-Both meet one contract bit for bit: ``d = ((dx*dx + dy*dy) + dz*dz) + pen``
-with every operation rounded on its own, pen 0 for a valid point and +inf
-otherwise; the (d, idx) lexicographic minimum, so ties go to the lowest
-index; (+inf, 0) when no point is valid; any Q >= 0 and N >= 1. The TPU
-kernel's limits (Q % 512, N % 2048) do not carry over. What bounds the
-kernel on the card, and what its design does about that, is noted in the
-CUDA source.
+Both meet one contract bit for bit: ``d = (dx*dx + dy*dy) + dz*dz`` with
+every operation rounded on its own, over the valid points only; the (d,
+idx) lexicographic minimum, so ties go to the lowest index; (+inf, 0) when
+no point is valid, and (+inf, 0) for a query whose ``src_valid`` flag is
+false (no search is made for it); any Q >= 0 and N >= 1. The TPU kernel's
+limits (Q % 512, N % 2048) do not carry over. What bounds the kernel on
+the card, and what its design does about that, is noted in the CUDA source.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,105 +39,195 @@ from rtabmap_tpu_torch.ops.cuda import build
 SOURCE = "nn3d"
 # queries per step of the plain version: bounds its (rows, N) temporaries
 _PLAIN_PAIRS = 1 << 24
+# search blocks an SM: the grid the host sizes from Q and N alone
+BLOCKS_PER_SM = 8
 
 
-def nn3d_reference(src: torch.Tensor, dst: torch.Tensor,
-                   dst_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+class Nn3dPlan(NamedTuple):
+    """A destination (and query mask) prepared for ``nn3d_search``. On the
+    card ``dst4`` holds the valid points compacted in order as (x, y, z, 0)
+    and ``ints`` their indices (N), the query order (Q: valid queries
+    first) and the two counts; on the CPU both are None."""
+    dst: torch.Tensor
+    dst_valid: torch.Tensor
+    src_valid: Optional[torch.Tensor]
+    dst4: Optional[torch.Tensor] = None
+    ints: Optional[torch.Tensor] = None
+
+
+def nn3d_reference(src: torch.Tensor, dst: torch.Tensor, dst_valid: torch.Tensor,
+                   src_valid: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch 1-NN with the kernel's exact contract, chunked over
     queries so that the (Q, N) distance matrix never sits whole in memory."""
     Q, N = src.shape[0], dst.shape[0]
-    pen = torch.where(dst_valid, 0.0, float("inf")).to(torch.float32)
     bx, by, bz = dst[:, 0], dst[:, 1], dst[:, 2]
     out_d = torch.empty((Q,), dtype=torch.float32, device=src.device)
     out_i = torch.empty((Q,), dtype=torch.int32, device=src.device)
     rows = max(1, _PLAIN_PAIRS // max(N, 1))
     for q0 in range(0, Q, rows):
         q = src[q0:q0 + rows]
-        # ((dx*dx + dy*dy) + dz*dz) + pen, one rounding an operation, in place
+        # (dx*dx + dy*dy) + dz*dz, one rounding an operation, in place
         d2 = q[:, 0:1] - bx
         d2.mul_(d2)
         d = q[:, 1:2] - by
         d2.add_(d.mul_(d))
         d = q[:, 2:3] - bz
-        d2.add_(d.mul_(d)).add_(pen)
+        d2.add_(d.mul_(d)).masked_fill_(~dst_valid, float("inf"))
         m, i = torch.min(d2, dim=1)   # first index of the minimum
         out_d[q0:q0 + rows] = m
         out_i[q0:q0 + rows] = i.to(torch.int32)
+    if src_valid is not None:
+        out_d.masked_fill_(~src_valid, float("inf"))
+        out_i.masked_fill_(~src_valid, 0)
     return out_d, out_i
+
+
+def nn3d_compact_reference(dst: torch.Tensor, dst_valid: torch.Tensor,
+                           src_valid: Optional[torch.Tensor] = None):
+    """Plain version of ``nn3d_compact``: (dst4 (np,4), dlist (np,),
+    qlist (Q,) or None, counts (2,)), the valid points in order with a
+    zero fourth lane, their indices, the valid queries in order then the
+    masked ones, and (np, nq)."""
+    dlist = torch.nonzero(dst_valid)[:, 0].to(torch.int32)
+    dst4 = torch.cat([dst[dlist.long()], dst.new_zeros((dlist.numel(), 1))], dim=1)
+    if src_valid is None:
+        return dst4, dlist, None, torch.tensor([dlist.numel(), 0], dtype=torch.int32)
+    qlist = torch.cat([torch.nonzero(src_valid)[:, 0],
+                       torch.nonzero(~src_valid)[:, 0]]).to(torch.int32)
+    counts = torch.tensor([dlist.numel(), int(src_valid.sum())], dtype=torch.int32)
+    return dst4, dlist, qlist, counts
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nn3d.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
-        lib.nn3d.restype = i
+        lib.nn3d_compact_launch.argtypes = [p, p, i, p, i, p, p, p, p, p]
+        lib.nn3d_compact_launch.restype = i
+        lib.nn3d_search.argtypes = [p, p, p, p, p, i, i, p, p, p, p]
+        lib.nn3d_search.restype = i
         lib.nn3d_error_string.argtypes = [i]
         lib.nn3d_error_string.restype = ctypes.c_char_p
         lib.nn3d_block_queries.restype = i
-        lib.nn3d_tile_points.restype = i
+        lib.nn3d_min_chunk.restype = i
         lib._typed = True
     return lib
 
 
-def _check(src: torch.Tensor, dst: torch.Tensor, dst_valid: torch.Tensor):
-    if src.dim() != 2 or src.shape[1] != 3 or src.dtype != torch.float32:
-        raise ValueError(f"src must be (Q,3) float32, got {tuple(src.shape)} {src.dtype}")
-    if dst.dim() != 2 or dst.shape[1] != 3 or dst.dtype != torch.float32:
-        raise ValueError(f"dst must be (N,3) float32, got {tuple(dst.shape)} {dst.dtype}")
-    if dst_valid.shape != (dst.shape[0],) or dst_valid.dtype != torch.bool:
-        raise ValueError(f"dst_valid must be ({dst.shape[0]},) bool, got "
-                         f"{tuple(dst_valid.shape)} {dst_valid.dtype}")
-    if dst.shape[0] < 1:
+def _raise_on(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: " + lib.nn3d_error_string(err).decode())
+
+
+def _check_points(name: str, t: torch.Tensor):
+    if t.dim() != 2 or t.shape[1] != 3 or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be (n,3) float32, got {tuple(t.shape)} {t.dtype}")
+
+
+def _check_mask(name: str, m: torch.Tensor, n: int):
+    if m.shape != (n,) or m.dtype != torch.bool:
+        raise ValueError(f"{name} must be ({n},) bool, got {tuple(m.shape)} {m.dtype}")
+
+
+def _on_card(*ts: torch.Tensor) -> bool:
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError("nn3d's tensors must share a device")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise RuntimeError(f"nn3d runs on CPU or CUDA tensors, not {dev}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("nn3d's tensors must be contiguous")
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def nn3d_prepare(dst: torch.Tensor, dst_valid: torch.Tensor,
+                 src_valid: Optional[torch.Tensor] = None) -> Nn3dPlan:
+    """Prepare dst (N,3) f32 with dst_valid (N,) bool, and the query mask
+    src_valid (Q,) bool or None (every query valid), for ``nn3d_search``."""
+    _check_points("dst", dst)
+    _check_mask("dst_valid", dst_valid, dst.shape[0])
+    N = dst.shape[0]
+    if N < 1:
         raise ValueError("dst must hold at least one point")
-    if max(src.shape[0], dst.shape[0]) >= 2 ** 31 // 3:
+    ts = (dst, dst_valid)
+    Q = 0
+    if src_valid is not None:
+        Q = src_valid.shape[0] if src_valid.dim() == 1 else -1
+        _check_mask("src_valid", src_valid, Q)
+        ts += (src_valid,)
+    if max(Q, N) >= 2 ** 31 // 4:
         raise ValueError("nn3d indexes points with int32")
-    if not (src.device == dst.device == dst_valid.device):
-        raise ValueError("src, dst and dst_valid must share a device")
+    if not _on_card(*ts):
+        return Nn3dPlan(dst, dst_valid, src_valid)
+    dev = dst.device
+    dst4 = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    ints = torch.empty((N + Q + 2,), dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nn3d_compact_launch(
+            dst.data_ptr(), dst_valid.data_ptr(), N,
+            None if src_valid is None else src_valid.data_ptr(), Q,
+            dst4.data_ptr(), ints.data_ptr(), ints[N:].data_ptr(),
+            ints[-2:].data_ptr(), stream)
+    _raise_on(lib, err, "nn3d_compact")
+    nn3d_prepare.launches += 1
+    return Nn3dPlan(dst, dst_valid, src_valid, dst4, ints)
 
 
-def _chunking(n_qtiles: int, N: int, tile: int, device) -> Tuple[int, int]:
-    """Destination chunk size (a multiple of the kernel's tile) giving
-    about eight blocks per SM over the (query tile, chunk) grid."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    max_chunks = -(-N // tile)
-    n_chunks = max(1, min(max_chunks, -(-8 * sms // n_qtiles)))
-    chunk_pts = -(-(-(-N // n_chunks)) // tile) * tile
-    return chunk_pts, -(-N // chunk_pts)
-
-
-def nn3d(src: torch.Tensor, dst: torch.Tensor,
-         dst_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """src (Q,3) f32, dst (N,3) f32, dst_valid (N,) bool ->
-    (dist2 (Q,) f32, idx (Q,) int32) of each query's nearest valid point."""
-    _check(src, dst, dst_valid)
-    if src.device.type == "cpu":
-        return nn3d_reference(src, dst, dst_valid)
-    if src.device.type != "cuda":
-        raise RuntimeError(f"nn3d runs on CPU or CUDA tensors, not {src.device}")
-    for name, t in (("src", src), ("dst", dst), ("dst_valid", dst_valid)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    Q, N = src.shape[0], dst.shape[0]
+def nn3d_search(src: torch.Tensor, plan: Nn3dPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """src (Q,3) f32 against a plan -> (dist2 (Q,) f32, idx (Q,) int32) of
+    each query's nearest valid point; (+inf, 0) for a masked query."""
+    _check_points("src", src)
+    Q, N = src.shape[0], plan.dst.shape[0]
+    if plan.src_valid is not None and plan.src_valid.shape[0] != Q:
+        raise ValueError(f"the plan's query mask holds {plan.src_valid.shape[0]} "
+                         f"flags for {Q} queries")
+    if Q >= 2 ** 31 // 4:
+        raise ValueError("nn3d indexes points with int32")
+    if not _on_card(src, plan.dst):
+        return nn3d_reference(src, plan.dst, plan.dst_valid, plan.src_valid)
     dev = src.device
     dist2 = torch.empty((Q,), dtype=torch.float32, device=dev)
     idx = torch.empty((Q,), dtype=torch.int32, device=dev)
     if Q == 0:
         return dist2, idx
     lib = _library()
-    n_qtiles = -(-Q // lib.nn3d_block_queries())
-    chunk_pts, n_chunks = _chunking(n_qtiles, N, lib.nn3d_tile_points(), dev)
-    scratch = torch.empty((Q, n_chunks if n_chunks > 1 else 0, 2),
-                          dtype=torch.int32, device=dev)
+    bq, min_chunk = lib.nn3d_block_queries(), lib.nn3d_min_chunk()
+    q_tiles = -(-Q // bq)
+    grid = min(BLOCKS_PER_SM * _sm_count(dev.index if dev.index is not None
+                                         else torch.cuda.current_device()),
+               q_tiles * -(-N // min_chunk))
+    scratch = torch.empty((max(grid, q_tiles) * bq, 2), dtype=torch.int32, device=dev)
+    ints = plan.ints
+    qlist = None if plan.src_valid is None else ints[N:].data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nn3d(src.data_ptr(), dst.data_ptr(), dst_valid.data_ptr(), Q, N,
-                       chunk_pts, n_chunks, scratch.data_ptr(), dist2.data_ptr(),
-                       idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("nn3d launch failed: " + lib.nn3d_error_string(err).decode())
-    nn3d.launches += 1
+        err = lib.nn3d_search(src.data_ptr(), qlist, plan.dst4.data_ptr(),
+                              ints.data_ptr(), ints[-2:].data_ptr(), Q, grid,
+                              scratch.data_ptr(), dist2.data_ptr(), idx.data_ptr(),
+                              stream)
+    _raise_on(lib, err, "nn3d_search")
+    nn3d_search.launches += 1
     return dist2, idx
 
 
-nn3d.launches = 0
+def nn3d(src: torch.Tensor, dst: torch.Tensor, dst_valid: torch.Tensor,
+         src_valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """src (Q,3) f32, dst (N,3) f32, dst_valid (N,) bool, src_valid (Q,)
+    bool or None -> (dist2 (Q,) f32, idx (Q,) int32) of each query's
+    nearest valid point; (+inf, 0) where src_valid is false."""
+    _check_points("src", src)
+    return nn3d_search(src, nn3d_prepare(dst, dst_valid, src_valid))
+
+
+nn3d_prepare.launches = 0
+nn3d_search.launches = 0

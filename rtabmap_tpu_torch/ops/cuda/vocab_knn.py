@@ -14,11 +14,15 @@ Hamming 2-NN of a frame's descriptors against the whole vocabulary slab.
 Both meet one contract bit for bit: dist = (256 - q.s)/2 exact, invalid
 words excluded, a missing neighbour is (1e9, idx 0), ranks in (dist, idx)
 lexicographic order, any Q >= 1 and W >= 1. What bounds the kernel on the
-card, and what its design does about that, is noted in the CUDA source.
+card, and what its design does about that (int8 tensor cores, queries held
+in registers, a cp.async ring of slab tiles), is noted in the CUDA source.
+The dictionary passes only the valid prefix of its slab
+(``vocab/dictionary.py``), so W is the vocabulary's size, not its capacity.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -28,6 +32,8 @@ from rtabmap_tpu_torch.ops.features import DESC_DIM
 from rtabmap_tpu_torch.ops.matching import knn_blocked
 
 SOURCE = "vocab_knn"
+# slab chunks an SM over the (query tile, chunk) grid
+CHUNKS_PER_SM = 1
 
 
 def knn2_reference(query: torch.Tensor, slab: torch.Tensor,
@@ -66,12 +72,18 @@ def _check(query: torch.Tensor, slab: torch.Tensor, slab_valid: torch.Tensor):
         raise ValueError("query, slab and slab_valid must share a device")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _chunking(n_qtiles: int, W: int, block_rows: int, device) -> Tuple[int, int]:
     """Slab chunk size (a multiple of the kernel's row tile) giving about
-    four blocks per SM over the (query tile, chunk) grid."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ``CHUNKS_PER_SM`` blocks per SM over the (query tile, chunk) grid."""
+    sms = _sm_count(device.index if device.index is not None
+                    else torch.cuda.current_device())
     max_chunks = -(-W // block_rows)
-    n_chunks = max(1, min(max_chunks, -(-4 * sms // n_qtiles)))
+    n_chunks = max(1, min(max_chunks, -(-CHUNKS_PER_SM * sms // n_qtiles)))
     chunk_rows = -(-(-(-W // n_chunks)) // block_rows) * block_rows
     return chunk_rows, -(-W // chunk_rows)
 

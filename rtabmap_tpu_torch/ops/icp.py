@@ -2,7 +2,11 @@
 
 Port of ``rtabmap_tpu/ops/icp.py``. Correspondences are exact nearest
 neighbours from the Hopper kernel K2 (``ops/cuda/nn3d.py``; its plain
-version on CPU tensors), rejected beyond ``max_corr_dist``; the rigid step
+version on CPU tensors), rejected beyond ``max_corr_dist``. K2 searches
+for the valid source points only (a masked one reads +inf, which no
+threshold accepts, so the results are the JAX twin's ``src_valid & ...``
+masks bit for bit), and one ``icp()`` call compacts its destination and
+source mask once for all its searches. The rigid step
 is the weighted Kabsch fit (point-to-point) or the 6x6 Gauss-Newton solve
 (point-to-plane). The iterations are a Python loop of device operations
 with no host sync inside it.
@@ -16,7 +20,7 @@ import torch
 from rtabmap_tpu_torch.geometry import transform as T
 from rtabmap_tpu_torch.ops import cloud as CL
 from rtabmap_tpu_torch.ops import linalg as L3
-from rtabmap_tpu_torch.ops.cuda.nn3d import nn3d
+from rtabmap_tpu_torch.ops.cuda.nn3d import nn3d, nn3d_prepare, nn3d_search
 from rtabmap_tpu_torch.ops.ransac import rigid_from_correspondences
 
 
@@ -28,10 +32,13 @@ class IcpResult(NamedTuple):
     iterations: int = 0
 
 
-def _nn_blocked(src: torch.Tensor, dst: torch.Tensor, dst_valid: torch.Tensor):
+def _nn_blocked(src: torch.Tensor, dst: torch.Tensor, dst_valid: torch.Tensor,
+                src_valid: Optional[torch.Tensor] = None):
     """For each src point: (dist2, index) of the nearest valid dst point,
-    by K2 at every Q and N (the TPU kernel's Q%512/N%2048 gate is gone)."""
-    return nn3d(src.contiguous(), dst.contiguous(), dst_valid.contiguous())
+    by K2 at every Q and N (the TPU kernel's Q%512/N%2048 gate is gone);
+    (+inf, 0) where ``src_valid`` is false."""
+    return nn3d(src.contiguous(), dst.contiguous(), dst_valid.contiguous(),
+                None if src_valid is None else src_valid.contiguous())
 
 
 def icp(src: torch.Tensor, src_valid: torch.Tensor, dst: torch.Tensor,
@@ -46,10 +53,11 @@ def icp(src: torch.Tensor, src_valid: torch.Tensor, dst: torch.Tensor,
     max_d2 = max_corr_dist ** 2
     eye6 = 1e-6 * torch.eye(6, dtype=src.dtype, device=src.device)
     Tcur = guess
+    plan = nn3d_prepare(dst.contiguous(), dst_valid.contiguous(), src_valid.contiguous())
     for _ in range(iters):
         moved = T.apply(Tcur[None], src[None])[0]
-        d2, idx = _nn_blocked(moved, dst, dst_valid)
-        w = (src_valid & (d2 < max_d2)).to(src.dtype)
+        d2, idx = nn3d_search(moved.contiguous(), plan)
+        w = (d2 < max_d2).to(src.dtype)             # masked sources read +inf
         q = dst[idx.long()]
         if point_to_plane:
             nrm = dst_normals[idx.long()]
@@ -63,8 +71,8 @@ def icp(src: torch.Tensor, src_valid: torch.Tensor, dst: torch.Tensor,
         else:
             Tcur = T.compose(rigid_from_correspondences(moved, q, w), Tcur)
     moved = T.apply(Tcur[None], src[None])[0]
-    d2, _ = _nn_blocked(moved, dst, dst_valid)
-    inl = src_valid & (d2 < max_d2)
+    d2, _ = nn3d_search(moved.contiguous(), plan)
+    inl = d2 < max_d2
     ratio = inl.sum() / torch.clamp_min(src_valid.sum(), 1)
     # the clamp of the JAX twin, whose expanded-form distances can dip below 0
     rmse = torch.sqrt(torch.where(inl, torch.clamp_min(d2, 0.0), 0.0).sum()

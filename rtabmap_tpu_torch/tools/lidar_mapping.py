@@ -13,7 +13,7 @@ at the optimized poses. Every state tensor lives on ``device``.
 The run records, per frame, the wall time of odometry and of the
 proximity registration (each ending in a device synchronize), the time of
 the pose-graph solve and of the map, and how many 3-D nearest-neighbour
-(K2) searches it asked for.
+(K2) searches it asked for and how many destinations it prepared for them.
 
 Usage: python -m rtabmap_tpu_torch.tools.lidar_mapping [n_frames]
        [--noise s] [--verbose] [--device cpu|cuda] [--n-azimuth 1800]
@@ -82,7 +82,7 @@ def run_lidar_mapping(scans: Iterable[Tuple[object, object]],
     ef, et, meas, infos = [], [], [], []
     closures: List[Tuple[int, int]] = []
     lost = 0
-    searches = 0
+    searches = plans = 0
     odom_ms: List[float] = []
     reg_ms: List[float] = []
     frame_ms: List[float] = []
@@ -95,6 +95,7 @@ def run_lidar_mapping(scans: Iterable[Tuple[object, object]],
         valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
         pose, cov, info = odom.process(pts, valid)
         searches += info["nn_searches"]
+        plans += info["nn_plans"]
         sync()
         t1 = time.perf_counter()
         odom_ms.append((t1 - t0) * 1e3)
@@ -126,6 +127,7 @@ def run_lidar_mapping(scans: Iterable[Tuple[object, object]],
                                           voxel=voxel / 2, max_corr_dist=max_corr,
                                           iters=icp_iters)
             searches += icp_iters + 1
+            plans += 1
             if bool(res.valid):
                 # res.transform maps the current scan into node j's frame
                 ef.append(j)
@@ -146,8 +148,8 @@ def run_lidar_mapping(scans: Iterable[Tuple[object, object]],
         after_frames()
 
     out: Dict = {"nodes": len(node_poses), "closures": closures, "lost": lost,
-                 "nn3d_searches": searches, "odom_ms": odom_ms, "reg_ms": reg_ms,
-                 "frame_ms": frame_ms, "odometry": odom}
+                 "nn3d_searches": searches, "nn3d_plans": plans, "odom_ms": odom_ms,
+                 "reg_ms": reg_ms, "frame_ms": frame_ms, "odometry": odom}
     if len(node_poses) < 2:
         out["poses"] = node_poses
         return out
@@ -218,7 +220,8 @@ def sensor_sequence(n_frames: int = 150, n_azimuth: int = S.VLP16_AZIMUTH,
 def summary(out: Dict) -> Dict:
     """The run's numbers as JSON-ready values."""
     frame = np.asarray(out["frame_ms"])
-    res = {k: out[k] for k in ("nodes", "lost", "nn3d_searches", "occupied_voxels",
+    res = {k: out[k] for k in ("nodes", "lost", "nn3d_searches", "nn3d_plans",
+                               "occupied_voxels",
                                "ate_slam", "ate_odom", "graph_ms", "map_ms") if k in out}
     res.update(closures=len(out["closures"]),
                frame_ms_median=float(np.median(frame)),

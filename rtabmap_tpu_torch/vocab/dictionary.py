@@ -77,6 +77,7 @@ class VWDictionary:
                                        device=self.device)
         self._nndr_t = torch.tensor(self.nndr, dtype=torch.float32, device=self.device)
         self.n_words = 0
+        self._uncommitted = False
 
     @property
     def slab(self) -> torch.Tensor:
@@ -96,9 +97,18 @@ class VWDictionary:
     def quantize_async(self, desc, valid):
         """Device-only quantization + insertion. Returns device (word_ids,
         is_new, n_new); the caller passes the fetched n_new to
-        ``commit_new_words`` before the next quantize call."""
-        nn_idx, is_new = _quantize_kernel(desc, valid, self.slab, self.word_valid,
-                                          self._nndr_t)
+        ``commit_new_words`` before the next quantize call.
+
+        Words are only appended and never cleared, so the valid words are
+        the prefix ``[0, n_words)`` of the slab, and the 2-NN scans that
+        prefix only (at least one row: an empty vocabulary reads as one
+        invalid word). That needs ``n_words`` current, hence the check."""
+        if self._uncommitted:
+            raise RuntimeError("commit_new_words must follow each quantize_async")
+        n = max(self.n_words, 1)
+        nn_idx, is_new = _quantize_kernel(desc, valid, self._slab[:n],
+                                          self._word_valid[:n], self._nndr_t)
+        self._uncommitted = True
         return _insert_after_quantize(
             nn_idx, is_new, desc, valid, self._slab, self._word_valid,
             self.n_words, self.capacity - self.n_words,
@@ -106,6 +116,7 @@ class VWDictionary:
 
     def commit_new_words(self, n_new: int):
         self.n_words += int(n_new)
+        self._uncommitted = False
 
     def descriptors(self, word_ids):
         return self.slab[torch.as_tensor(word_ids, device=self.device).long()]
@@ -121,8 +132,11 @@ class VWDictionary:
 
     @classmethod
     def from_state(cls, st, device: DeviceLike = None) -> "VWDictionary":
-        """From a ``state_dict()`` of either package (numpy arrays)."""
+        """From a ``state_dict()`` of either package (numpy arrays). Raises
+        on a valid word past ``n_words``: quantization scans the prefix."""
         slab = np.asarray(st["slab"])
+        if np.asarray(st["word_valid"], bool)[int(st["n_words"]):].any():
+            raise ValueError("word_valid holds a valid word past n_words")
         d = cls(capacity=slab.shape[0], desc_dim=slab.shape[1], nndr=st["nndr"],
                 incremental=st["incremental"], device=device)
         d.slab.copy_(torch.from_numpy(slab.astype(np.int8)))

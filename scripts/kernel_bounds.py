@@ -1,19 +1,21 @@
 """Least H100 times of the repository's two TPU kernels at the shapes their
-callers give them, from bytes moved and operations done.
+callers give them, from bytes moved and operations done, by the bound
+functions ``chip_smoke.py`` uses (``knn2_bound_ms``, ``nn3d_bound_ms``).
 
-K1, the vocabulary 2-NN (``rtabmap_tpu/ops/pallas/vocab_knn.py::pallas_knn2``),
-at the appearance-only tick's shape: Q=400 descriptors of 256 int8 against
-the whole 262144-word slab, every word valid (the most work the shape can
-need), int8 tensor-core rate.
+K1, the vocabulary 2-NN (``rtabmap_tpu/ops/pallas/vocab_knn.py::pallas_knn2``):
+Q=400 descriptors of 256 int8 against the dictionary's valid prefix at the
+BOW cell's end state (31853 words), against the whole 262144-word slab with
+every word valid (the most work the shape can need), and with 70% valid.
 
 K2, the 3-D 1-NN of ICP (``rtabmap_tpu/ops/pallas/nn3d.py::pallas_nn3d``),
-at the shapes of ``rtabmap_tpu/ops/icp.py``: one search per ICP iteration
-plus the final one (``Icp/Iterations`` 30 -> 31 searches a call); the
-destination is the scan-odometry local map (``OdomF2M/ScanMaxSize`` 2000
-rounded up to 2048, ``odometry/scan_f2m.py:176``) and the query a scan of
-as many points. Each pair costs 3 subtractions, 3 multiplications and 2
-additions in float32 on the CUDA cores (the kernel takes direct
-differences, not a product the tensor cores could run).
+at the LiDAR path's shapes (``Icp/Iterations`` 15 -> 16 searches an ICP
+call): a 28800-point VLP-16 scan against the 16384-point full-width local
+map (odometry) and against another scan (closure registration). The
+queries are the scan's points that survive its 5 cm voxel filter, and so
+are the closure's destination points: ``chip_smoke.py`` prints 12145 and
+12736 for its two scans, and 12145 stands for both here (its own bounds
+use the counts of its inputs). The unmasked rows count every query, as
+the search did before it took a query mask.
 
 Usage (from the repository root): PYTHONPATH=. python scripts/kernel_bounds.py
 """
@@ -21,28 +23,36 @@ from __future__ import annotations
 
 import json
 
-from chip_smoke import HBM_BYTES_PER_S, INT8_OPS_PER_S
+from chip_smoke import knn2_bound_ms, nn3d_bound_ms
 
-F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-
-
-def bound_us(bytes_: float, ops: float, ops_per_s: float) -> dict:
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / ops_per_s
-    return {"bytes": bytes_, "ops": ops, "bound_us": max(t_bytes, t_ops) * 1e6,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+SCAN = 16 * 1800          # VLP-16 points a scan
+MAP = 16384               # full-width local map (tools/lidar_mapping.py)
+VOXEL_KEPT = 12145        # scan points kept by the 5 cm voxel filter
+SEARCHES = 16             # Icp/Iterations 15, plus the final search
 
 
-def k1(Q: int = 400, W: int = 262144, D: int = 256) -> dict:
-    return {"kernel": "vocab_knn2", "Q": Q, "W": W,
-            **bound_us(Q * D + W * D + W + Q * 2 * 8, 2.0 * Q * W * D, INT8_OPS_PER_S)}
+def row(kernel: str, case: str, bound) -> dict:
+    ms, by = bound
+    return {"kernel": kernel, "case": case, "bound_us": ms * 1e3, "bound_by": by}
 
 
-def k2(Q: int = 2048, N: int = 2048, searches: int = 31) -> dict:
-    one = bound_us(3 * 4 * Q + 3 * 4 * N + N + Q * 8, 8.0 * Q * N, F32_OPS_PER_S)
-    return {"kernel": "nn3d", "Q": Q, "N": N, **one,
-            "searches_per_icp": searches, "icp_bound_us": one["bound_us"] * searches}
+def rows() -> list:
+    out = [row("vocab_knn2", "Q=400 x prefix 31853", knn2_bound_ms(400, 31853, 31853)),
+           row("vocab_knn2", "Q=400 x 262144 all valid", knn2_bound_ms(400, 262144, 262144)),
+           row("vocab_knn2", "Q=400 x 262144 70% valid",
+               knn2_bound_ms(400, 262144, int(0.7 * 262144)))]
+    for case, (Q, N, nq, np_) in {
+            "odometry masked": (SCAN, MAP, VOXEL_KEPT, MAP),
+            "closure masked": (SCAN, SCAN, VOXEL_KEPT, VOXEL_KEPT),
+            "odometry unmasked": (SCAN, MAP, SCAN, MAP),
+            "closure unmasked": (SCAN, SCAN, SCAN, VOXEL_KEPT)}.items():
+        r = row("nn3d", f"{case}: {nq} of {Q} queries x {np_} of {N} points",
+                nn3d_bound_ms(Q, N, nq, np_))
+        r["per_icp_us"] = r["bound_us"] * SEARCHES
+        out.append(r)
+    return out
 
 
 if __name__ == "__main__":
-    for row in (k1(), k2(), k2(8192, 8192)):
-        print(json.dumps(row))
+    for r in rows():
+        print(json.dumps(r))

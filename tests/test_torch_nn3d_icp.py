@@ -7,6 +7,11 @@ Tolerances and why:
   within 1e-6 relative. Both take direct differences in the same order,
   but XLA on the CPU may reassociate or contract the sum (one ulp, 3e-8,
   measured on these cases).
+- K2 with a query mask: the same on the valid queries; exactly (+inf, 0)
+  on the masked ones.
+- ICP with K2's query mask against the search the callers made before it
+  (every query searched, the mask applied afterwards): equal bits, since
+  a masked row reads +inf and carries zero weight either way.
 - ICP: transforms, correspondence ratio and RMSE within 1e-4, on 90 x 16
   scans. The JAX CPU search uses the expanded form |s|^2 - 2 s.d + |d|^2
   (distances off by up to 2e-6), the port the direct form, and the
@@ -74,13 +79,35 @@ def test_nn3d_plain_contract_and_checks():
     full = torch.where(valid, full, float("inf"))
     assert torch.equal(d, full.min(1).values)
     assert torch.equal(i.long(), full.argmin(1))
-    assert K2.nn3d.launches == 0       # CPU tensors never launch the kernel
+    # CPU tensors never launch the kernels
+    assert K2.nn3d_search.launches == 0 and K2.nn3d_prepare.launches == 0
     with pytest.raises(ValueError):
         K2.nn3d(src.double(), dst, valid)
     with pytest.raises(ValueError):
         K2.nn3d(src, dst[:, :2], valid)
     with pytest.raises(ValueError):
         K2.nn3d(src, dst, valid[:10])
+
+
+@pytest.mark.parametrize("name", ["invalid", "ties", "all-masked", "no-valid-point"])
+def test_nn3d_plain_query_mask(name):
+    src, dst, valid = _nn_case("empty" if name == "no-valid-point" else
+                               "invalid" if name == "all-masked" else name)
+    rng = np.random.default_rng(7)
+    src_valid = np.zeros(len(src), bool) if name == "all-masked" else rng.random(len(src)) >= 0.3
+    d, i = K2.nn3d(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
+                   torch.from_numpy(src_valid))
+    d, i = d.numpy(), i.numpy()
+    assert np.all(np.isinf(d[~src_valid])) and np.all(i[~src_valid] == 0)
+    blocks = dict(qblock=128, dblock=512) if name == "no-valid-point" else {}
+    dp, ip = pallas_nn3d(jnp.asarray(src.T), jnp.asarray(dst.T), jnp.asarray(valid),
+                         interpret=True, **blocks)
+    dp, ip = np.asarray(dp)[src_valid], np.asarray(ip)[src_valid]
+    np.testing.assert_array_equal(i[src_valid], ip)
+    if name == "no-valid-point":
+        assert np.all(np.isinf(d)) and np.all(i == 0)
+    else:
+        np.testing.assert_allclose(d[src_valid], dp, rtol=1e-6, atol=0)
 
 
 def _scan_pair():
@@ -126,6 +153,38 @@ def test_icp_matches_jax(scan_pair, point_to_plane):
     _close(rt, rj)
     if point_to_plane:   # and it did align the scans
         assert np.abs(rt.transform.numpy()[:, 3] - true_rel[:, 3]).max() < 0.02
+
+
+def _search_then_mask(moved, plan):
+    """The search as the callers made it before K2 took a query mask:
+    every query searched, the mask applied to the distances afterwards."""
+    d, i = K2.nn3d_reference(moved, plan.dst, plan.dst_valid)
+    return torch.where(plan.src_valid, d, float("inf")), i
+
+
+@pytest.mark.parametrize("case", ["p2p", "p2plane", "register"])
+def test_icp_query_mask_same_bits(scan_pair, monkeypatch, case):
+    (src, vs, dst, vd), guess, _ = scan_pair
+    vs = vs & (np.random.default_rng(3).random(len(vs)) >= 0.2)
+    args = [torch.from_numpy(a) for a in (src, vs, dst, vd)]
+
+    def run():
+        if case == "register":
+            return ICP.register_scans(*args, guess=torch.from_numpy(guess), iters=8)
+        nrm = None
+        if case == "p2plane":
+            nrm = torch.from_numpy(np.array(JCL.estimate_normals(
+                jnp.asarray(dst), jnp.asarray(vd), k=8)[0]))
+        return ICP.icp(*args, guess=torch.from_numpy(guess), iters=8,
+                       point_to_plane=nrm is not None, dst_normals=nrm), None
+
+    (masked, cov_m) = run()
+    monkeypatch.setattr(ICP, "nn3d_search", _search_then_mask)
+    (unmasked, cov_u) = run()
+    for a, b in zip(masked[:4], unmasked[:4]):
+        assert torch.equal(a, b)
+    if cov_m is not None:
+        assert torch.equal(cov_m, cov_u)
 
 
 def test_register_scans_matches_jax(scan_pair):

@@ -73,6 +73,7 @@ def test_scan_odometry_matches_jax(jax_run):
     # one more on a keyframe
     assert steps[0][1]["nn_searches"] == 1
     assert all(info["nn_searches"] == 16 + info["keyframe"] for _, info in steps[1:])
+    assert all(info["nn_plans"] == 1 + info["keyframe"] for _, info in steps[1:])
 
 
 def test_state_from_numpy_continues_a_jax_sequence(jax_run):

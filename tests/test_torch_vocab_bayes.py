@@ -23,14 +23,14 @@ from torch_port_threads import one_torch_thread  # noqa: F401
 CAP = 4096
 
 
-def _frames():
-    """12 FeatureWorld frames (8 ways, then 4 revisits) with seeded bit
-    flips so that the NNDR test both matches and creates words."""
+def _frames(ways=tuple(range(8)) + (0, 1, 2, 3)):
+    """FeatureWorld frames (by default 8 ways, then 4 revisits) with seeded
+    bit flips so that the NNDR test both matches and creates words."""
     cam = JC.CameraModel.make(300.0, 300.0, 160.0, 120.0, 320, 240)
     world = JWorld(cam, n_ways=12, K=128)
     rng = np.random.default_rng(5)
     out = []
-    for i, w in enumerate(list(range(8)) + [0, 1, 2, 3]):
+    for i, w in enumerate(ways):
         fr = world.frame(w, i)
         desc = np.asarray(fr.desc).copy()
         flips = rng.random(desc.shape) < 0.04
@@ -68,6 +68,48 @@ def test_from_state_round_trip():
         wt, _ = tv.quantize(torch.from_numpy(desc), torch.from_numpy(valid))
         np.testing.assert_array_equal(wt, np.asarray(wj))
     np.testing.assert_array_equal(tv.state_dict()["slab"], jv.state_dict()["slab"])
+
+
+def test_quantize_prefix_matches_full_slab_and_jax():
+    """The dictionary scans only the valid prefix [0, n_words) of its slab:
+    over a 20-frame incremental sequence the prefix search gives the
+    full-slab search's neighbours and new-word flags, the JAX
+    ``_quantize_kernel``'s, and the JAX dictionary's word ids, new-word
+    flags and word count, all exactly."""
+    jv = JD.VWDictionary(capacity=CAP)
+    tv = TD.VWDictionary(capacity=CAP, device="cpu")
+    nndr = torch.tensor(tv.nndr)
+    for desc, valid in _frames(tuple(range(12)) + tuple(range(8))):
+        dt, vt = torch.from_numpy(desc), torch.from_numpy(valid)
+        n = max(tv.n_words, 1)
+        i_pre, new_pre = TD._quantize_kernel(dt, vt, tv.slab[:n], tv.word_valid[:n], nndr)
+        i_full, new_full = TD._quantize_kernel(dt, vt, tv.slab, tv.word_valid, nndr)
+        i_j, new_j = JD._quantize_kernel(jnp.asarray(desc), jnp.asarray(valid), jv.slab,
+                                         jv.word_valid, jnp.float32(jv.nndr))
+        assert torch.equal(i_pre, i_full) and torch.equal(new_pre, new_full)
+        np.testing.assert_array_equal(i_pre.numpy(), np.asarray(i_j))
+        np.testing.assert_array_equal(new_pre.numpy(), np.asarray(new_j))
+        wj, nj = jv.quantize(jnp.asarray(desc), jnp.asarray(valid))
+        wt, nt = tv.quantize(dt, vt)
+        np.testing.assert_array_equal(wt, np.asarray(wj))
+        np.testing.assert_array_equal(nt, np.asarray(nj))
+        assert tv.n_words == jv.n_words
+    assert 0 < tv.n_words < CAP
+
+
+def test_from_state_rejects_valid_word_past_n_words():
+    tv = TD.VWDictionary(capacity=64, device="cpu")
+    desc, valid = _frames()[0]
+    tv.quantize(torch.from_numpy(desc[:16]), torch.from_numpy(valid[:16]))
+    st = tv.state_dict()
+    TD.VWDictionary.from_state(st, device="cpu")        # consistent: loads
+    st["word_valid"] = st["word_valid"].copy()
+    st["word_valid"][tv.n_words + 3] = True
+    with pytest.raises(ValueError):
+        TD.VWDictionary.from_state(st, device="cpu")
+    with pytest.raises(RuntimeError):                   # n_words must be current
+        tv.quantize_async(torch.from_numpy(desc[:4]), torch.from_numpy(valid[:4]))
+        tv.quantize_async(torch.from_numpy(desc[:4]), torch.from_numpy(valid[:4]))
 
 
 def _likelihood_inputs(seed=0, N=24, K=48, W=96):

@@ -91,3 +91,23 @@ def test_knn2_rejects_bad_inputs():
         V.knn2(torch.zeros((4, 256), dtype=torch.int8), s, torch.ones(7, dtype=torch.bool))
     with pytest.raises(ValueError):
         V.knn2(torch.zeros((4, 256), dtype=torch.float32), s, torch.ones(8, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("n_valid", [1, 77, 1000])
+def test_knn2_valid_prefix_matches_full_slab(n_valid):
+    """The dictionary's call: when the valid words are the prefix
+    [0, n_valid), searching the prefix gives the whole slab's answer, and
+    the JAX blocked search's."""
+    rng = np.random.default_rng(n_valid)
+    s = _signs(rng, 2048)
+    valid = np.arange(2048) < n_valid
+    q = _signs(rng, 100)
+    q[:50] = s[rng.integers(0, n_valid, 50)]
+    q[-1] = 0
+    d, i = V.knn2(torch.from_numpy(q), torch.from_numpy(s[:n_valid]),
+                  torch.from_numpy(valid[:n_valid]))
+    df, i_f = V.knn2(torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(valid))
+    assert torch.equal(d, df) and torch.equal(i, i_f)
+    dr, ir = knn_blocked(jnp.asarray(q), jnp.asarray(s), k=2, block=512,
+                         base_valid=jnp.asarray(valid))
+    _check(d, i, dr, ir, rank1_index=True)
