@@ -22,7 +22,10 @@ Phases — any failure ends the run with a non-zero exit code:
    with 30% invalid and duplicated points, with and without a 30% query
    mask, no valid point, no valid query, one valid query and point, 1 x 1;
    K2's compaction kernel against its plain version; one masked search
-   under ``torch.cuda.set_sync_debug_mode("error")`` (it must not sync);
+   under ``torch.cuda.set_sync_debug_mode("error")`` (it must not sync).
+   Kernel times are one eager call each (``kernel_ms``, as the earlier
+   slices timed them, the kernels line's ``ms``) and the device time of a
+   CUDA graph of ten calls (``graph_ms``);
 4. slice ``bow_mapping``: the appearance-only tick —
    ``FeatureExtractor.extract`` -> ``Rtabmap.process`` with
    RGBD/Enabled=false on cuda, 640x480 renders of two 150-frame laps, 400
@@ -110,34 +113,39 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3, inner: int = 10,
-            graph: bool = False) -> float:
-    """Per-call time of ``fn`` on the card: the median over ``reps`` of
-    CUDA-event timings of ``inner`` back-to-back calls, after warm-up.
-    Eager calls queue on the stream while the card runs, so the host's
-    launch overhead shows only where it is the slower of the two; with
-    ``graph`` the ``inner`` calls are captured in a CUDA graph and replayed,
-    which leaves the device time of the launches alone."""
-    for _ in range(warmup):
-        fn()
-
-    def batch():
-        for _ in range(inner):
-            fn()
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            batch()
-        batch = g.replay
+def _event_ms(run, reps: int) -> list:
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        batch()
+        run()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return float(np.median(times))
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of one eager call of ``fn``
+    after warm-up: the card waits for the host's launch, so a small
+    kernel's time includes its wrapper's. Every ``ms``, ``plain_ms`` and
+    ``library_ms`` is timed so, as in the earlier slices."""
+    for _ in range(warmup):
+        fn()
+    return float(np.median(_event_ms(fn, reps)))
+
+
+def graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """Device time of one call of ``fn``: ``inner`` calls captured in one
+    CUDA graph and replayed, median of ``reps`` CUDA-event timings over
+    ``inner``; the host's launch time is left out."""
+    fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(inner):
+            fn()
+    g.replay()
+    return float(np.median(_event_ms(g.replay, reps))) / inner
 
 
 # ------------------------------------------------------------------ kernels
@@ -212,10 +220,10 @@ def check_knn2():
             bound, bound_by = knn2_bound_ms(Q, sl.shape[0], int(va.sum()))
             row = {"kernel": "vocab_knn2", "case": label, "Q": Q, "W": sl.shape[0],
                    "n_valid": int(va.sum()), "equal": True,
-                   "kernel_ms": time_ms(lambda: K1.knn2(q, sl, va), graph=True),
-                   "call_ms": time_ms(lambda: K1.knn2(q, sl, va)),
-                   "plain_ms": time_ms(lambda: K1.knn2_reference(q, sl, va), reps=5, inner=2),
-                   "library_ms": time_ms(lambda: knn2_library(q, *lib_args), reps=10, inner=3),
+                   "kernel_ms": time_ms(lambda: K1.knn2(q, sl, va)),
+                   "graph_ms": graph_ms(lambda: K1.knn2(q, sl, va)),
+                   "plain_ms": time_ms(lambda: K1.knn2_reference(q, sl, va), reps=10),
+                   "library_ms": time_ms(lambda: knn2_library(q, *lib_args)),
                    "bound_us": bound * 1e3, "bound_by": bound_by}
             print(json.dumps(row), flush=True)
             rows[label] = dict(row, _d=d, _i=i)
@@ -297,13 +305,17 @@ def nn3d_bound_ms(Q: int, N: int, n_query: int, n_point: int) -> tuple:
     """Least time for the work these inputs need. Pairs: only those of a
     valid query (all Q without a query mask) and a valid point: no caller
     reads a masked query's result, and an invalid point cannot be a
-    neighbour. Each pair costs 9 FP32-pipe instructions: 3 subtractions,
-    3 multiplications, 2 additions and 1 comparison, none of which the
-    bit-exact contract lets fuse into an FMA, at 33.5e12 a second. Bytes:
-    the valid queries and points (12 bytes each) and both masks read
-    once, the (d, idx) outputs (8 bytes a query) written once."""
+    neighbour. Each pair costs 8 FP32-pipe instructions: 3 subtractions,
+    3 multiplications and 2 additions, none of which the bit-exact
+    contract lets fuse into an FMA, at 33.5e12 a second. The compare and
+    the two selects of the running minimum are not counted: which pipe
+    issues them is not documented, and on the integer/logic pipe (64
+    lanes an SM, half the FP32 pipe's 128) their 3 take less time than
+    the 8, so only the 8 surely bound the time. Bytes: the valid queries and
+    points (12 bytes each) and both masks read once, the (d, idx)
+    outputs (8 bytes a query) written once."""
     bytes_ = 12 * n_query + 12 * n_point + N + Q + 8 * Q
-    ops = 9.0 * n_query * n_point
+    ops = 8.0 * n_query * n_point
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -322,12 +334,12 @@ def check_compact(name, dst, valid, src_valid):
     plan = K2.nn3d_prepare(dst, valid, src_valid)
     torch.cuda.synchronize()
     d4, dl, ql, counts = K2.nn3d_compact_reference(dst, valid, src_valid)
-    n_pt, N = d4.shape[0], dst.shape[0]
-    got = plan.ints[-2:].cpu()
+    n_pt = d4.shape[0]
+    got = plan.counts.cpu()
     ok = (int(got[0]) == int(counts[0]) and torch.equal(plan.dst4[:n_pt], d4)
-          and torch.equal(plan.ints[:n_pt], dl))
+          and torch.equal(plan.dlist[:n_pt], dl) and (ql is None) == (plan.qlist is None))
     if ql is not None:
-        ok = ok and int(got[1]) == int(counts[1]) and torch.equal(plan.ints[N:-2], ql)
+        ok = ok and int(got[1]) == int(counts[1]) and torch.equal(plan.qlist, ql)
     if not ok:
         fail(f"nn3d_compact disagrees with its plain version ({name})")
 
@@ -352,20 +364,21 @@ def check_nn3d():
             plan = K2.nn3d_prepare(dst, valid, src_valid)
             bound, bound_by = nn3d_bound_ms(Q, N, n_query, n_point)
             cbound, _ = compact_bound_ms(0 if src_valid is None else Q, N, n_point)
-            row.update(kernel_ms=time_ms(lambda: K2.nn3d_search(src, plan), graph=True),
-                       call_ms=time_ms(lambda: K2.nn3d_search(src, plan)),
-                       compact_ms=time_ms(lambda: K2.nn3d_prepare(dst, valid, src_valid),
-                                          graph=True),
+            search = lambda: K2.nn3d_search(src, plan)  # noqa: E731
+            prepare = lambda: K2.nn3d_prepare(dst, valid, src_valid)  # noqa: E731
+            row.update(kernel_ms=time_ms(search), graph_ms=graph_ms(search),
+                       compact_ms=time_ms(prepare), compact_graph_ms=graph_ms(prepare),
                        plain_ms=time_ms(lambda: K2.nn3d_reference(src, dst, valid, src_valid),
-                                        reps=5, inner=2),
+                                        reps=10),
                        library_ms=time_ms(lambda: nn3d_library(src, dst, valid, src_valid),
-                                          reps=10, inner=3),
+                                          reps=10),
                        bound_us=bound * 1e3, bound_by=bound_by, compact_bound_us=cbound * 1e3)
         print(json.dumps(row), flush=True)
         rows[name] = row
-    frame = {"odometry_16x_ms": 16 * rows["odometry-masked"]["kernel_ms"],
-             "closure_16x_ms": 16 * rows["closure-masked"]["kernel_ms"]}
-    frame["sum_ms"] = frame["odometry_16x_ms"] + frame["closure_16x_ms"]
+    # K2 a full-width frame: 16 odometry and 16 closure searches, by each
+    # timing (PR 2's 12.2 ms a frame was timed as kernel_ms)
+    frame = {key: 16 * rows["odometry-masked"][key] + 16 * rows["closure-masked"][key]
+             for key in ("kernel_ms", "graph_ms")}
     print(json.dumps({"kernel": "nn3d", "full_width_frame": frame}), flush=True)
     check_no_sync()
     main_shape = rows["odometry-masked"]
@@ -382,8 +395,7 @@ def check_nn3d():
                "source": "rtabmap_tpu_torch/csrc/nn3d.cu",
                "replaces": "rtabmap_tpu/ops/pallas/nn3d.py:56", "max_abs_err": 0.0,
                "ms": main_shape["compact_ms"],
-               "plain_ms": time_ms(lambda: K2.nn3d_compact_reference(dst, valid, src_valid),
-                                   reps=10, inner=3),
+               "plain_ms": time_ms(lambda: K2.nn3d_compact_reference(dst, valid, src_valid)),
                "bound_ms": cb, "bound_by": cb_by, "library_ms": None}
     return k2, compact
 

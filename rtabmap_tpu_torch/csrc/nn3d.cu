@@ -10,14 +10,15 @@
 //   index; a query with no valid point gets (+inf, 0); a query whose flag
 //   is false gets (+inf, 0) and no search; any Q, N >= 1.
 //
-// What bounds it on an H100: each (valid query, valid point) pair costs 9
-// FP32-pipe instructions (3 subtractions, 3 multiplications, 2 additions
-// and the comparison; the contract forbids FMA contraction, so the
-// data-sheet 67 TFLOP/s, which counts an FMA as two, gives 33.5e12 of them
-// a second) with no product the tensor cores could take, against 16 bytes
-// a point and 12 a query read once. At the ICP shapes the instructions
-// dominate by two orders of magnitude, so the design spends no instruction
-// on a pair that no caller reads:
+// What bounds it on an H100: each (valid query, valid point) pair costs 8
+// FP32-pipe instructions (3 subtractions, 3 multiplications, 2 additions;
+// the contract forbids FMA contraction, so the data-sheet 67 TFLOP/s,
+// which counts an FMA as two, gives 33.5e12 of them a second), plus the
+// compare and two selects of the running minimum, with no product the
+// tensor cores could take, against 16 bytes a point and 12 a query read
+// once. At the ICP shapes the instructions dominate by two orders of
+// magnitude, so the design spends no instruction on a pair that no caller
+// reads:
 // - nn3d_compact runs once per destination (once per icp() call): its
 //   blocks stream-compact the valid points, in order, into (x, y, z, 0)
 //   float4s with their original indices, and partition the query mask
@@ -40,14 +41,8 @@
 
 namespace {
 
-// NN3D_R selects the variants scripts/kernel_variants.py compares on the
-// card; the default is the one it chose.
-#ifndef NN3D_R
-#define NN3D_R 4
-#endif
-
 constexpr int kThreads = 128;   // threads of a search block
-constexpr int kR = NN3D_R;      // queries a thread
+constexpr int kR = 4;           // queries a thread
 constexpr int kBQ = kThreads * kR;
 constexpr int kTile = 256;      // destination points a shared tile
 constexpr int kMinChunk = 256;  // fewest points a chunk takes

@@ -44,10 +44,7 @@ constexpr int kMaxWarps = 16;       // warps of a block, 32 queries each
 constexpr int kBQ = 32 * kMaxWarps; // queries a block at most
 constexpr int kRows = 64;           // slab rows of a tile
 constexpr int kStride = 320;        // padded bytes of a tile row
-#ifndef VOCAB_KNN_STAGES
-#define VOCAB_KNN_STAGES 4
-#endif
-constexpr int kStages = VOCAB_KNN_STAGES;
+constexpr int kStages = 4;          // depth of the cp.async ring
 constexpr int kStageBytes = kRows * kStride + kRows;  // rows, then flags
 constexpr int kSmem = kStages * kStageBytes;
 constexpr int kNone = INT_MAX;      // "no neighbour" distance

@@ -41,12 +41,9 @@ def _is_fresh(name: str) -> bool:
     return lib.exists() and lib.stat().st_mtime >= (CSRC / f"{name}.cu").stat().st_mtime
 
 
-def _command(name: str, out: Path, defines: Iterable[str] = ()) -> List[str]:
-    """The nvcc command line; ``defines`` (``MACRO=value``) select a build
-    variant (``scripts/kernel_variants.py``)."""
+def _command(name: str, out: Path) -> List[str]:
     return [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
-            "-Xcompiler", "-fPIC", *(f"-D{d}" for d in defines), "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+            "-Xcompiler", "-fPIC", "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:

@@ -40,19 +40,24 @@ SOURCE = "nn3d"
 # queries per step of the plain version: bounds its (rows, N) temporaries
 _PLAIN_PAIRS = 1 << 24
 # search blocks an SM: the grid the host sizes from Q and N alone
-BLOCKS_PER_SM = 8
+_BLOCKS_PER_SM = 8
 
 
 class Nn3dPlan(NamedTuple):
     """A destination (and query mask) prepared for ``nn3d_search``. On the
-    card ``dst4`` holds the valid points compacted in order as (x, y, z, 0)
-    and ``ints`` their indices (N), the query order (Q: valid queries
-    first) and the two counts; on the CPU both are None."""
+    card, written by ``nn3d_compact``: ``dst4`` (N,4) the valid points
+    compacted in order as (x, y, z, 0), ``dlist`` (N,) their indices,
+    ``qlist`` (Q,) the valid queries in order then the masked ones (None
+    without a query mask), ``counts`` (2,) the numbers of valid points and
+    valid queries; only the first ``counts[0]`` rows of ``dst4`` and
+    ``dlist`` are written. On the CPU all four are None."""
     dst: torch.Tensor
     dst_valid: torch.Tensor
     src_valid: Optional[torch.Tensor]
     dst4: Optional[torch.Tensor] = None
-    ints: Optional[torch.Tensor] = None
+    dlist: Optional[torch.Tensor] = None
+    qlist: Optional[torch.Tensor] = None
+    counts: Optional[torch.Tensor] = None
 
 
 def nn3d_reference(src: torch.Tensor, dst: torch.Tensor, dst_valid: torch.Tensor,
@@ -170,17 +175,19 @@ def nn3d_prepare(dst: torch.Tensor, dst_valid: torch.Tensor,
     dev = dst.device
     dst4 = torch.empty((N, 4), dtype=torch.float32, device=dev)
     ints = torch.empty((N + Q + 2,), dtype=torch.int32, device=dev)
+    dlist, qlist, counts = ints[:N], ints[N:N + Q], ints[N + Q:]
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nn3d_compact_launch(
             dst.data_ptr(), dst_valid.data_ptr(), N,
             None if src_valid is None else src_valid.data_ptr(), Q,
-            dst4.data_ptr(), ints.data_ptr(), ints[N:].data_ptr(),
-            ints[-2:].data_ptr(), stream)
+            dst4.data_ptr(), dlist.data_ptr(), qlist.data_ptr(), counts.data_ptr(),
+            stream)
     _raise_on(lib, err, "nn3d_compact")
     nn3d_prepare.launches += 1
-    return Nn3dPlan(dst, dst_valid, src_valid, dst4, ints)
+    return Nn3dPlan(dst, dst_valid, src_valid, dst4, dlist,
+                    None if src_valid is None else qlist, counts)
 
 
 def nn3d_search(src: torch.Tensor, plan: Nn3dPlan) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -203,16 +210,15 @@ def nn3d_search(src: torch.Tensor, plan: Nn3dPlan) -> Tuple[torch.Tensor, torch.
     lib = _library()
     bq, min_chunk = lib.nn3d_block_queries(), lib.nn3d_min_chunk()
     q_tiles = -(-Q // bq)
-    grid = min(BLOCKS_PER_SM * _sm_count(dev.index if dev.index is not None
-                                         else torch.cuda.current_device()),
+    grid = min(_BLOCKS_PER_SM * _sm_count(dev.index if dev.index is not None
+                                          else torch.cuda.current_device()),
                q_tiles * -(-N // min_chunk))
     scratch = torch.empty((max(grid, q_tiles) * bq, 2), dtype=torch.int32, device=dev)
-    ints = plan.ints
-    qlist = None if plan.src_valid is None else ints[N:].data_ptr()
+    qlist = None if plan.qlist is None else plan.qlist.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nn3d_search(src.data_ptr(), qlist, plan.dst4.data_ptr(),
-                              ints.data_ptr(), ints[-2:].data_ptr(), Q, grid,
+                              plan.dlist.data_ptr(), plan.counts.data_ptr(), Q, grid,
                               scratch.data_ptr(), dist2.data_ptr(), idx.data_ptr(),
                               stream)
     _raise_on(lib, err, "nn3d_search")

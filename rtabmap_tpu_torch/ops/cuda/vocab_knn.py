@@ -32,8 +32,6 @@ from rtabmap_tpu_torch.ops.features import DESC_DIM
 from rtabmap_tpu_torch.ops.matching import knn_blocked
 
 SOURCE = "vocab_knn"
-# slab chunks an SM over the (query tile, chunk) grid
-CHUNKS_PER_SM = 1
 
 
 def knn2_reference(query: torch.Tensor, slab: torch.Tensor,
@@ -79,11 +77,11 @@ def _sm_count(index: int) -> int:
 
 def _chunking(n_qtiles: int, W: int, block_rows: int, device) -> Tuple[int, int]:
     """Slab chunk size (a multiple of the kernel's row tile) giving about
-    ``CHUNKS_PER_SM`` blocks per SM over the (query tile, chunk) grid."""
+    one block per SM over the (query tile, chunk) grid."""
     sms = _sm_count(device.index if device.index is not None
                     else torch.cuda.current_device())
     max_chunks = -(-W // block_rows)
-    n_chunks = max(1, min(max_chunks, -(-CHUNKS_PER_SM * sms // n_qtiles)))
+    n_chunks = max(1, min(max_chunks, -(-sms // n_qtiles)))
     chunk_rows = -(-(-(-W // n_chunks)) // block_rows) * block_rows
     return chunk_rows, -(-W // chunk_rows)
 

@@ -149,8 +149,7 @@ def test_nn3d_kernel_query_mask(name):
     assert (K2.nn3d_prepare.launches, K2.nn3d_search.launches) == (before[0] + 1,
                                                                    before[1] + 2)
     d4, dl, ql, counts = K2.nn3d_compact_reference(dst, valid, src_valid)
-    N = dst.shape[0]
-    assert plan.ints[-2:].cpu().tolist() == counts.tolist()
+    assert plan.counts.cpu().tolist() == counts.tolist()
     assert torch.equal(plan.dst4[:d4.shape[0]], d4)
-    assert torch.equal(plan.ints[:d4.shape[0]], dl)
-    assert torch.equal(plan.ints[N:-2], ql)
+    assert torch.equal(plan.dlist[:d4.shape[0]], dl)
+    assert torch.equal(plan.qlist, ql)

@@ -35,7 +35,7 @@ def test_run_lidar_mapping_matches_jax():
     scans = [tuple(np.array(a) for a in JS.lidar_scan(jnp.asarray(p), n_azimuth=72, n_rings=16))
              for p in gt]
     oj = JLM.run_lidar_mapping(iter(scans), gt_poses=gt)
-    K2.nn3d.launches = 0
+    K2.nn3d_search.launches = K2.nn3d_prepare.launches = 0
     ot = LM.run_lidar_mapping(iter(scans), gt_poses=gt, device="cpu")
     assert ot["closures"] == oj["closures"] and len(ot["closures"]) >= 1
     assert ot["lost"] == oj["lost"] == 0 and ot["nodes"] == oj["nodes"] == 36
@@ -46,7 +46,8 @@ def test_run_lidar_mapping_matches_jax():
     assert abs(ot["occupied_voxels"] - oj["occupied_voxels"]) <= 0.005 * oj["occupied_voxels"]
     # searches: 16 a tracked frame (+1 on a keyframe), 1 at the bootstrap,
     # 16 a registration; on CPU tensors none launches the kernel
-    assert ot["nn3d_searches"] >= 16 * 35 + 1 and K2.nn3d.launches == 0
+    assert ot["nn3d_searches"] >= 16 * 35 + 1
+    assert K2.nn3d_search.launches == 0 and K2.nn3d_prepare.launches == 0
     assert len(ot["frame_ms"]) == 36 and ot["graph_ms"] > 0 and ot["map_ms"] > 0
 
 
