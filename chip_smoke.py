@@ -38,11 +38,26 @@ Phases — any failure ends the run with a non-zero exit code:
    sigma 0.01 m: first at the parity width 16 x 225, held against the JAX
    package's CPU run of the same sequence (``scripts/jax_lidar_mapping.py``),
    then at the full VLP-16 width 16 x 1800 = 28800 points a scan with a
-   16384-point local map, held against the simulator's ground truth, timed.
+   16384-point local map, held against the simulator's ground truth, timed;
+6. slice ``rgbd_mapping``: the default metric RGB-D tick through
+   ``run_dataset`` (``FeatureExtractor.extract`` -> ``OdometryF2M.process``
+   -> ``Rtabmap.process``: F2M visual odometry with local bundle
+   adjustment, PnP registration, proximity closures, incremental graph
+   optimization) on cuda (``tools/rgbd_laps.py``): first the JAX package's
+   end-to-end test sequence (``tests/test_slam_e2e.py``: 58 frames at
+   320x240, 384 keypoints, 128 node slots), held against the JAX package's
+   CPU run of it (``scripts/jax_rgbd_laps.py``); then the full width, two
+   60-frame laps at 640x480 with 512 keypoints, the 262144-word vocabulary,
+   1024 node slots and the 2000-point F2M map, held against the ground
+   truth and the JAX CPU run's closures. Both check that the F2M map, the
+   vocabulary and node slabs and the posterior lie on the card and that
+   K1 launched once per quantize call.
 
 Each slice zeroes the launch counts of its kernels right before it and
-reads them right after; they must equal the calls the slice made (K2:
-one search launch a search, one compaction launch a prepared destination).
+reads them right after; they must equal the calls the slice made (K1:
+one launch a quantize call; K2: one search launch a search, one
+compaction launch a prepared destination). The kernels line's K1
+``launches`` sums its two slices.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -63,6 +78,7 @@ from rtabmap_tpu_torch.ops.cuda import nn3d as K2
 from rtabmap_tpu_torch.ops.cuda import vocab_knn as K1
 from rtabmap_tpu_torch.tools import bow_laps
 from rtabmap_tpu_torch.tools import lidar_mapping as LM
+from rtabmap_tpu_torch.tools import rgbd_laps
 
 # H100 SXM dense peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor op/s,
 # and FP32-pipe instructions/s outside the tensor cores: the data sheet's
@@ -99,6 +115,27 @@ JAX_LIDAR_ATE = 0.025430718484748708
 # Full width: the bound the JAX package's own scan-odometry test holds its
 # odometry to (tests/test_scan_odometry.py), here for the solved graph.
 FULL_WIDTH_ATE = 0.05
+
+# The RGB-D parity sequence (tests/test_slam_e2e.py's): the JAX package's
+# CPU run (scripts/jax_rgbd_laps.py) closes 11 loops, adds 2 proximity
+# links, loses no frame and ends at a SLAM ATE of 0.02919 m. The card must
+# reach 90% of the loops, lose no more frames and stay within 0.02 m of
+# that ATE, and inside test_slam_e2e's 0.08 m: the RANSAC draws differ
+# (a torch generator against jax.random) and sums run in another order on
+# the card, which moves a borderline registration or keyframe.
+JAX_RGBD_LOOPS = 11
+JAX_RGBD_LOST = 0
+JAX_RGBD_ATE = 0.029193185743422653
+RGBD_ATE_BOUND = 0.08
+# The full-width sequence: the JAX CPU run (scripts/jax_rgbd_laps.py)
+# closes 61 loops, adds 25 proximity links, loses no frame, odometry ATE
+# 0.02997 m, SLAM ATE 0.02330 m. The card must reach 90% of its loops (the
+# same reasons as above); against the ground truth it must lose no frame
+# and stay within RGBD_ATE_BOUND and within 1.1 x its own odometry's ATE.
+JAX_RGBD_FULL_LOOPS = 61
+# Words in the vocabulary at the end of that run: the prefix K1 scans on
+# the run's last quantize calls.
+RGBD_FULL_WORDS = 24054
 
 
 def fail(msg: str):
@@ -194,14 +231,16 @@ def check_knn2():
     shapes. Returns the kernels-line entry at the dictionary's prefix call
     of the BOW cell's end state (Q=400 x 31853 valid rows)."""
     rows = {}
-    # BOW cell's end state: 31853 words in the 262144-row slab
+    # BOW cell's end state: 31853 words in the 262144-row slab; the RGB-D
+    # full-width run's end state: RGBD_FULL_WORDS words, 512 queries
     cases = (("full-70", 400, 262144, 0, 0), ("end-state", 400, 262144, 3, 31853),
+             ("rgbd-end-state", 512, 262144, 4, RGBD_FULL_WORDS),
              ("ragged", 37, 5000, 1, 0))
     for name, Q, W, seed, n_prefix in cases:
         q, slab, valid = knn2_case(Q, W, seed, n_prefix)
         calls = [(name, slab, valid)]
         if n_prefix:   # the call the dictionary makes: its valid prefix only
-            calls.append(("prefix", slab[:n_prefix], valid[:n_prefix]))
+            calls.append((name + "-prefix", slab[:n_prefix], valid[:n_prefix]))
         for label, sl, va in calls:
             # torch._int_mm takes a multiple of 8 rows: the rows after the
             # prefix are invalid, so the padded call computes the same 2-NN
@@ -214,9 +253,9 @@ def check_knn2():
                 bad = int(((d != dr).any(1) | (i != ir).any(1)).sum())
                 fail(f"vocab_knn2 disagrees with its plain version ({label}, Q={Q} "
                      f"W={sl.shape[0]}) on {bad} queries")
-            if label == "prefix" and not (torch.equal(d, rows["end-state"]["_d"])
-                                          and torch.equal(i, rows["end-state"]["_i"])):
-                fail("vocab_knn2 on the valid prefix differs from the whole slab")
+            if label.endswith("-prefix") and not (torch.equal(d, rows[name]["_d"])
+                                                  and torch.equal(i, rows[name]["_i"])):
+                fail(f"vocab_knn2 on the valid prefix differs from the whole slab ({name})")
             bound, bound_by = knn2_bound_ms(Q, sl.shape[0], int(va.sum()))
             row = {"kernel": "vocab_knn2", "case": label, "Q": Q, "W": sl.shape[0],
                    "n_valid": int(va.sum()), "equal": True,
@@ -227,7 +266,7 @@ def check_knn2():
                    "bound_us": bound * 1e3, "bound_by": bound_by}
             print(json.dumps(row), flush=True)
             rows[label] = dict(row, _d=d, _i=i)
-    main_shape = rows["prefix"]
+    main_shape = rows["end-state-prefix"]
     return {"name": "vocab_knn2", "route": "cuda",
             "source": "rtabmap_tpu_torch/csrc/vocab_knn.cu",
             "replaces": "rtabmap_tpu/ops/pallas/vocab_knn.py:80",
@@ -504,6 +543,61 @@ def run_lidar_slices() -> tuple:
     return full["nn3d_launches"], full["nn3d_compact_launches"]
 
 
+def run_rgbd(name: str) -> dict:
+    """One RGB-D SLAM run on the card (tools/rgbd_laps.py); checks that the
+    state lies on the card, that K1 launched once per quantize call and
+    that every statistic is finite."""
+    K1.knn2.launches = 0
+    out = rgbd_laps.run_sequence(name, torch.device("cuda"))
+    launches = K1.knn2.launches
+    run = out.pop("run")
+    slam, odom = run["slam"], run["odom"]
+    mem = slam.memory
+    for label, t in (("F2M map points", odom.state.map_pts),
+                     ("F2M map descriptors", odom.state.map_desc),
+                     ("vocabulary slab", mem.vocab.slab), ("node words", mem.node_words),
+                     ("node points", mem.node_pts), ("word counts", mem.word_nw),
+                     ("posterior", slam.bayes.posterior)):
+        if t.device.type != "cuda":
+            fail(f"{name}: {label} lies on {t.device}")
+    if launches != out["quantize_calls"] or launches == 0:
+        fail(f"{name}: vocab_knn2 launched {launches} times for {out['quantize_calls']} "
+             "quantize calls")
+    for st in slam.stats_history:
+        for k, v in st.data.items():
+            if not np.isfinite(v):
+                fail(f"{name}: statistic {k} = {v}")
+    poses = np.stack(list(slam.get_optimized_poses().values()))
+    if not (np.isfinite(poses).all() and np.isfinite(out["ate_slam"])):
+        fail(f"{name}: non-finite poses or ATE")
+    res = {"slice": "rgbd_mapping", "sequence": name, "vocab_knn2_launches": launches,
+           **out}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def run_rgbd_slices() -> int:
+    """The parity sequence against the JAX CPU numbers, then the full width
+    against the ground truth; returns K1's launches in both."""
+    par = run_rgbd("parity")
+    if par["loops"] < int(0.9 * JAX_RGBD_LOOPS):
+        fail(f"RGB-D parity: {par['loops']} loops, JAX CPU {JAX_RGBD_LOOPS}")
+    if par["lost"] > JAX_RGBD_LOST:
+        fail(f"RGB-D parity: {par['lost']} lost frames, JAX CPU {JAX_RGBD_LOST}")
+    if par["ate_slam"] > min(JAX_RGBD_ATE + 0.02, RGBD_ATE_BOUND):
+        fail(f"RGB-D parity: ATE {par['ate_slam']:.4f} m, JAX CPU {JAX_RGBD_ATE:.4f} m")
+    full = run_rgbd("full")
+    if full["lost"] != 0 or full["ate_slam_frames"] != full["frames"]:
+        fail(f"RGB-D full width: {full['lost']} lost, {full['ate_slam_frames']} of "
+             f"{full['frames']} frames in the graph")
+    if full["ate_slam"] > min(RGBD_ATE_BOUND, 1.1 * full["ate_odom"]):
+        fail(f"RGB-D full width: ATE {full['ate_slam']:.4f} m (odometry "
+             f"{full['ate_odom']:.4f} m, bound {RGBD_ATE_BOUND} m)")
+    if full["loops"] < int(0.9 * JAX_RGBD_FULL_LOOPS):
+        fail(f"RGB-D full width: {full['loops']} loops, JAX CPU {JAX_RGBD_FULL_LOOPS}")
+    return par["vocab_knn2_launches"] + full["vocab_knn2_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -525,6 +619,7 @@ def main():
     k2, k2c = check_nn3d()
     k1["launches"] = run_slice()
     k2["launches"], k2c["launches"] = run_lidar_slices()
+    k1["launches"] += run_rgbd_slices()
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k2c]}))

@@ -1,8 +1,9 @@
 """Synthetic scenes: a value-noise textured box room rendered analytically,
 its loop trajectory, and a render-free landmark world for engine tests.
 
-Port of ``World``, ``_hash2``/``value_noise``, ``render``, ``lidar_scan``,
-``lidar_trajectory``, ``loop_trajectory`` and ``FeatureWorld`` from
+Port of ``World``, ``_hash2``/``value_noise``, ``render``,
+``render_sequence``, ``lidar_scan``, ``lidar_trajectory``,
+``loop_trajectory`` and ``FeatureWorld`` from
 ``rtabmap_tpu/datasets/synthetic.py``. Camera convention: optical frame
 (x right, y down, z forward), pose = camera-in-world (3,4).
 """
@@ -99,6 +100,24 @@ def render(pose_wc, cam: C.CameraModel, world: World = DEFAULT_WORLD,
             best_col = torch.where(closer, tex, best_col)
     depth = torch.where(torch.isfinite(best_t), best_t, torch.zeros_like(best_t))
     return best_col, depth
+
+
+def render_sequence(poses, cam: C.CameraModel, world: World = DEFAULT_WORLD,
+                    depth_noise: float = 0.0, generator: torch.Generator = None,
+                    device: DeviceLike = None):
+    """Render a whole sequence -> (grays (N,H,W), depths (N,H,W)) on
+    ``device``. With ``depth_noise`` > 0 and a ``generator``, each valid
+    depth gets multiplicative Gaussian noise of that relative sigma (drawn
+    from ``generator``, so not the JAX twin's draws)."""
+    grays, depths = [], []
+    for pose in np.asarray(poses):
+        g, d = render(pose, cam, world, device=device)
+        if depth_noise > 0.0 and generator is not None:
+            noise = torch.randn(d.shape, generator=generator, device=d.device)
+            d = torch.where(d > 0, d + depth_noise * d * noise, torch.zeros_like(d))
+        grays.append(g)
+        depths.append(d)
+    return torch.stack(grays), torch.stack(depths)
 
 
 def loop_trajectory(n: int, radius: float = 1.5, height: float = 0.0) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Pinhole camera model: intrinsics + projection / backprojection.
 
 Port of the parts of ``rtabmap_tpu/geometry/camera.py`` that the
-appearance-only path and the renderer reach. Intrinsics are host floats
+appearance-only and RGB-D paths and the renderer reach (no distortion
+model or stereo rectification yet). Intrinsics are host floats
 holding float32 values, so device code folds them in as scalars.
 """
 from __future__ import annotations
@@ -46,3 +47,8 @@ def backproject(uv: torch.Tensor, depth: torch.Tensor, cam: CameraModel) -> torc
     x = (uv[..., 0] - cam.cx) / cam.fx * depth
     y = (uv[..., 1] - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def in_image(uv: torch.Tensor, width, height, border: float = 0.0) -> torch.Tensor:
+    return ((uv[..., 0] >= border) & (uv[..., 0] < width - border)
+            & (uv[..., 1] >= border) & (uv[..., 1] < height - border))

@@ -1,27 +1,38 @@
 """Memory: signatures, the STM -> WM -> LTM lifecycle and the device slabs.
 
-Port of ``rtabmap_tpu/memory/memory.py`` minus registration: host
-``Signature`` records (ids, pose, links, weights) are the control plane;
-fixed-capacity device slabs aligned by WM slot (word lists (N,K),
-keypoint uv/3D, the per-word signature counts) are the data plane the
-likelihood reads. Spilled signatures leave the slabs and survive as host
-records; retrieval re-inserts them into free slots.
+Port of ``rtabmap_tpu/memory/memory.py``: host ``Signature`` records
+(ids, pose, links, weights) are the control plane; fixed-capacity device
+slabs aligned by WM slot (word lists (N,K), keypoint uv/3D, the per-word
+signature counts) are the data plane the likelihood reads. Spilled
+signatures leave the slabs and survive as host records; retrieval
+re-inserts them into free slots.
 
-Waiting for the RGB-D slice: the registration kernels, ``compute_transform*``
-(visual, SuperGlue and optical-flow correspondences) and the map store.
+Signature registration (``compute_transform*``, the reference's
+Memory::computeTransform -> RegistrationVis) re-matches the stored
+descriptors by mutual NNDR and runs PnP-RANSAC with Kabsch hypotheses;
+several candidates register as one batched call, and its asynchronous
+form enqueues the work and starts non-blocking copies into pinned host
+memory, collected with one synchronization.
+
+Later slices: the optical-flow (``Vis/CorType`` 1), SuperGlue
+(``Vis/CorNNType`` 6) and GMS (``Vis/CorNNType`` 7) correspondence modes,
+and the map store (``memory/db.py``).
 """
 from __future__ import annotations
 
 import time as _time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from rtabmap_tpu_torch.core.frame import FrameFeatures
 from rtabmap_tpu_torch.device import DeviceLike, resolve_device
+from rtabmap_tpu_torch.geometry import camera as C
 from rtabmap_tpu_torch.geometry import transform as T
+from rtabmap_tpu_torch.ops import matching as M
+from rtabmap_tpu_torch.ops import ransac as R
 from rtabmap_tpu_torch.utils.logging import get_logger
 from rtabmap_tpu_torch.utils.params import Parameters
 from rtabmap_tpu_torch.vocab.dictionary import VWDictionary
@@ -114,6 +125,83 @@ class IdList(list):
 # The slab updates work IN PLACE on the device tensors (the JAX versions
 # return new arrays).
 
+def _registration_kernel(desc_a, valid_a, pts_a, uv_a, desc_b, valid_b3d, uv_b, pts_b,
+                         guess, cam: C.CameraModel, generator: Optional[torch.Generator],
+                         iters: int, reproj_px: float, min_inliers: int, nndr: float = 0.8,
+                         window_px: float = 0.0, use_window: bool = False,
+                         use_gms: bool = False, indices=None):
+    """Signature registration A -> B: mutual NNDR descriptor matching plus
+    PnP-RANSAC with Kabsch hypotheses, batched over any leading axes of
+    the A side and the guess (the B side is broadcast). ``use_window``
+    restricts both directions' candidates to ``window_px`` pixels around
+    A's points projected into B through the guess (B-in-A). Returns
+    (RansacResult, the mutual Matches of B -> A, (mean inlier range,
+    inlier image spread))."""
+    if use_gms:
+        raise NotImplementedError(
+            "GMS re-ranking (Vis/CorNNType=7) is not ported yet; it comes with the "
+            "ops/matching.gms_filter slice")
+    lead = desc_a.shape[:-2]
+    desc_b, valid_b3d, uv_b, pts_b = (t.expand(*lead, *t.shape) for t in
+                                      (desc_b, valid_b3d, uv_b, pts_b))
+    valid_bd = (desc_b != 0).any(-1)
+    if use_window:
+        uv_proj, z_proj = C.project(T.apply(T.inverse(guess), pts_a), cam)
+        valid_a = valid_a & (z_proj > 0)      # behind the camera never matches
+        m_ba = M.match_nndr(desc_b, valid_bd, desc_a, valid_a, nndr=nndr,
+                            guess_uv=uv_b, uv_b=uv_proj, window=window_px)
+        m_ab = M.match_nndr(desc_a, valid_a, desc_b, valid_bd, nndr=nndr,
+                            guess_uv=uv_proj, uv_b=uv_b, window=window_px)
+    else:
+        m_ba, m_ab = M.match_nndr_bidir(desc_b, valid_bd, desc_a, valid_a, nndr=nndr)
+    mm = m_ba._replace(valid=M.cross_check(m_ba, m_ab))
+    sel = torch.gather(pts_a, -2, mm.idx.long()[..., None].expand(*mm.idx.shape, 3))
+    res = R.ransac_pnp(sel, uv_b, mm.valid, cam, generator, iters=iters,
+                       reproj_px=reproj_px, min_inliers=min_inliers, guess=guess,
+                       pts3d_query=torch.where(valid_b3d[..., None], pts_b, 0.0),
+                       indices=indices)
+    # inlier statistics (RegistrationInfo inliersMeanDistance /
+    # inliersDistribution): mean 3D range of the inliers and their
+    # normalized image spread
+    w = res.inliers.to(sel.dtype)
+    n = torch.clamp_min(w.sum(-1), 1)
+    mean_dist = (torch.linalg.norm(sel, dim=-1) * w).sum(-1) / n
+    c = (uv_b * w[..., None]).sum(-2) / n[..., None]
+    diag = float(np.sqrt(np.float32(cam.width) ** 2 + np.float32(cam.height) ** 2))
+    spread = torch.sqrt((((uv_b - c[..., None, :]) ** 2).sum(-1) * w).sum(-1) / n) / diag
+    return res, mm, (mean_dist, spread)
+
+
+def _registration_kernel_batch(desc_a, valid_a, pts_a, uv_a, desc_b, valid_b3d, uv_b, pts_b,
+                               guesses, cam: C.CameraModel,
+                               generator: Optional[torch.Generator], iters: int,
+                               reproj_px: float, min_inliers: int, nndr: float,
+                               window_px: float, use_window: bool = False,
+                               use_gms: bool = False, indices=None):
+    """P independent A_i -> B registrations in one call: the A side
+    (P,K,...) and ``guesses`` (P,3,4) carry the candidate axis, every
+    operation of ``_registration_kernel`` runs batched over it."""
+    return _registration_kernel(desc_a, valid_a, pts_a, uv_a, desc_b, valid_b3d, uv_b, pts_b,
+                                guesses, cam, generator, iters, reproj_px, min_inliers,
+                                nndr=nndr, window_px=window_px, use_window=use_window,
+                                use_gms=use_gms, indices=indices)
+
+
+def _to_host_async(tensors):
+    """Start copies of device tensors into pinned host memory without
+    waiting; returns (host tensors, event to wait on, or None on the CPU)."""
+    if tensors[0].device.type != "cuda":
+        return list(tensors), None
+    out = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out.append(h)
+    ev = torch.cuda.Event()
+    ev.record()
+    return out, ev
+
+
 def _unique_flags(word_nw: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     """(W,) 1.0 at each distinct valid word of ``words``: duplicates count
     once (the reference counts signatures per word, not occurrences)."""
@@ -175,6 +263,12 @@ class Memory:
         self.bad_sign_ratio = float(p["Kp/BadSignRatio"])
         self.bad_signatures_ignored = bool(p["Mem/BadSignaturesIgnored"])
         self.kp_max_features = int(p["Kp/MaxFeatures"])
+        # correspondence knobs (RegistrationVis Vis/Cor*)
+        self.cor_type = int(p["Vis/CorType"])          # 0 features, 1 flow
+        self.cor_nndr = float(p["Vis/CorNNDR"])
+        self.cor_nn_type = int(p["Vis/CorNNType"])     # 6 SuperGlue, 7 GMS
+        self.guess_win_size = float(p["Vis/CorGuessWinSize"])
+        self.last_registration: Dict[str, float] = {}
         self.node_capacity = node_capacity
         self.K = words_per_frame
         self.vocab = vocab or VWDictionary(
@@ -182,6 +276,8 @@ class Memory:
             incremental=self.incremental, device=self.device)
 
         self._pending_create = None
+        self._current_frame_dev = None  # latest frame's device tensors (B side
+        self._current_frame_id = -1     # of a registration before finalize)
         self.signatures: Dict[int, Signature] = {}
         self.stm: List[int] = IdList()
         self.wm: List[int] = IdList()  # insertion-ordered (oldest first)
@@ -272,6 +368,8 @@ class Memory:
         sig = Signature(id=sid, map_id=self._map_id, stamp=stamp,
                         pose=np.asarray(pose, np.float32), weight=weight)
         sig.pending_word_ids = wid_dev
+        self._current_frame_dev = (frame.desc, frame.uv, frame.pts3d, ok3d_dev)
+        self._current_frame_id = sid
         self.signatures[sid] = sig
         self._insert_slab(sig, uv_dev=frame.uv, pts_dev=frame.pts3d, words_dev=wid_dev)
         self._pending_create = (sig, (wid_dev, n_new_dev, frame.desc, frame.uv,
@@ -559,3 +657,149 @@ class Memory:
             self._wm_append(sid)
             out.append(sid)
         return out
+
+    # --------------------------------------------------- pairwise registration
+    def _check_correspondence_mode(self):
+        if self.cor_type == 1:
+            raise NotImplementedError(
+                "optical-flow correspondences (Vis/CorType=1) are not ported yet; they "
+                "come with the ops/flow.py slice")
+        if self.cor_nn_type == 6:
+            raise NotImplementedError(
+                "SuperGlue matching (Vis/CorNNType=6) is not ported yet; it comes with "
+                "the learned-model slice")
+
+    def _b_side(self, b: Signature):
+        """The registration target's tensors: the in-flight frame's device
+        tensors while its deferred create is pending, else the host arrays."""
+        if b.desc is None and self._current_frame_dev is not None \
+                and self._current_frame_id == b.id:
+            desc, uv, pts, ok3 = self._current_frame_dev
+            return desc, ok3, uv, pts
+        return (self._as_dev(b.desc, torch.int8), self._as_dev(b.valid3d, torch.bool),
+                self._as_dev(b.uv, torch.float32), self._as_dev(b.pts3d, torch.float32))
+
+    def compute_transform(self, from_id: int, to_id: int, cam: C.CameraModel,
+                          generator: Optional[torch.Generator] = None, guess=None,
+                          min_inliers: int = 20, reproj_px: float = 4.0, iters: int = 256,
+                          guess_window: Optional[bool] = None, indices=None,
+                          ) -> Tuple[Optional[np.ndarray], np.ndarray, int]:
+        """Signature registration A -> B by stored-descriptor mutual NNDR and
+        PnP-RANSAC; with a guess and ``guess_window`` the candidates are
+        restricted to Vis/CorGuessWinSize pixels around the projection.
+        Returns (T_ab or None, covariance, inliers)."""
+        self._check_correspondence_mode()
+        a, b = self.signatures[from_id], self.signatures[to_id]
+        has_guess = guess is not None
+        guess_t = (self._as_dev(guess, torch.float32) if has_guess
+                   else T.identity(device=self.device))
+        use_window = bool(guess_window) and has_guess and self.guess_win_size > 0
+        b_desc, b_ok3, b_uv, b_pts = self._b_side(b)
+        res, mm, (mean_d, spread) = _registration_kernel(
+            self._as_dev(a.desc, torch.int8), self._as_dev(a.valid3d, torch.bool),
+            self._as_dev(a.pts3d, torch.float32), self._as_dev(a.uv, torch.float32),
+            b_desc, b_ok3, b_uv, b_pts, guess_t, cam, generator, iters, reproj_px,
+            min_inliers, nndr=self.cor_nndr, window_px=self.guess_win_size,
+            use_window=use_window, use_gms=self.cor_nn_type == 7, indices=indices)
+        # one transfer for every output the host reads
+        flat = torch.cat([res.transform.reshape(-1), res.covariance.reshape(-1),
+                          torch.stack([res.success.float(), res.num_inliers.float(),
+                                       mm.valid.sum().float(), mean_d, spread])]).cpu().numpy()
+        transform, cov = flat[:12].reshape(3, 4), flat[12:48].reshape(6, 6)
+        success, n_inl, n_match, mean_d, spread = flat[48:]
+        self._record_registration_host(int(n_inl), cov, int(n_match), float(mean_d),
+                                       float(spread))
+        if not success:
+            return None, np.eye(6) * 9999.0, int(n_inl)
+        return transform.copy(), cov.copy(), int(n_inl)
+
+    def compute_transform_batch(self, from_ids, to_id: int, cam: C.CameraModel,
+                                generator: Optional[torch.Generator], guesses,
+                                min_inliers: int = 20, reproj_px: float = 4.0,
+                                iters: int = 256, guess_window: Optional[bool] = None,
+                                indices=None):
+        """Registrations {A_i} -> B in one batched call and one fetch.
+        Returns [(T_ab or None, covariance, inliers), ...] per from_id."""
+        if not from_ids:
+            return []
+        handles = self.compute_transform_batch_async(
+            from_ids, to_id, cam, generator, guesses, min_inliers=min_inliers,
+            reproj_px=reproj_px, iters=iters, guess_window=guess_window, indices=indices)
+        return self.collect_transform_batch(handles)
+
+    def compute_transform_batch_async(self, from_ids, to_id: int, cam: C.CameraModel,
+                                      generator: Optional[torch.Generator], guesses,
+                                      min_inliers: int = 20, reproj_px: float = 4.0,
+                                      iters: int = 256, guess_window: Optional[bool] = None,
+                                      indices=None):
+        """Enqueue-only half of ``compute_transform_batch``: launches the
+        batched registration and non-blocking copies of its outputs into
+        pinned host memory, and returns handles for
+        ``collect_transform_batch``. The target may be the frame whose
+        deferred create is still in flight (its device tensors are used)."""
+        self._check_correspondence_mode()
+        A = [self.signatures[i] for i in from_ids]
+        b_desc, b_ok3, b_uv, b_pts = self._b_side(self.signatures[to_id])
+        stack = lambda attr, dt: self._as_dev(np.stack([getattr(a, attr) for a in A]), dt)
+        res, mm, (mean_d, spread) = _registration_kernel_batch(
+            stack("desc", torch.int8), stack("valid3d", torch.bool),
+            stack("pts3d", torch.float32), stack("uv", torch.float32),
+            b_desc, b_ok3, b_uv, b_pts,
+            self._as_dev(np.stack([np.asarray(g, np.float32) for g in guesses]), torch.float32),
+            cam, generator, iters, reproj_px, min_inliers, self.cor_nndr, self.guess_win_size,
+            use_window=bool(guess_window) and self.guess_win_size > 0,
+            use_gms=self.cor_nn_type == 7, indices=indices)
+        P = len(A)
+        flat = torch.cat([res.transform.reshape(P, 12), res.covariance.reshape(P, 36),
+                          torch.stack([res.success.float(), res.num_inliers.float(),
+                                       mm.valid.sum(-1).float(), mean_d, spread], -1)], -1)
+        return _to_host_async([flat])
+
+    def collect_transform_batch(self, handles):
+        """Blocking half: one synchronization, then per-pair results (see
+        ``compute_transform_batch``)."""
+        (flat,), ev = handles
+        if ev is not None:
+            ev.synchronize()
+        flat = flat.numpy()
+        out = []
+        for row in flat:
+            n_inl = int(row[49])
+            if row[48]:
+                out.append((row[:12].reshape(3, 4).copy(), row[12:48].reshape(6, 6).copy(),
+                            n_inl))
+            else:
+                out.append((None, np.eye(6) * 9999.0, n_inl))
+        last = flat[-1]   # stats of the last attempted registration
+        self._record_registration_host(int(last[49]), last[12:48].reshape(6, 6),
+                                       int(last[50]), float(last[51]), float(last[52]))
+        return out
+
+    def _record_registration_host(self, inl: int, cov, matches: int, mean_dist: float = 0.0,
+                                  distribution: float = 0.0):
+        """Match-level stats of the LAST registration for the engine's
+        Loop/Visual* statistics (RegistrationInfo)."""
+        cov = np.asarray(cov)
+        self.last_registration = {
+            "matches": matches, "inliers": inl, "inliers_ratio": inl / max(matches, 1),
+            "variance": float(max(cov[0, 0], cov[5, 5])),
+            "lin_variance": float(cov[0, 0]), "ang_variance": float(cov[5, 5]),
+            "mean_dist": mean_dist, "distribution": distribution}
+
+    def get_constraints(self, session_only: bool = True):
+        """Poses + links of the resident signatures for the optimizer
+        (reference: Memory::getMetricConstraints)."""
+        ids = list(self.wm + self.stm)
+        if session_only:
+            ids = [i for i in ids if self.signatures[i].map_id == self._map_id]
+        idset = set(ids)
+        poses = {i: self.signatures[i].pose for i in ids}
+        links, seen = [], set()
+        for i in ids:
+            for j, lk in self.signatures[i].links.items():
+                if j in idset and (j, i) not in seen:
+                    seen.add((i, j))
+                    links.append(lk)
+                elif j < 0 and lk.type == LINK_LANDMARK:
+                    links.append(lk)
+        return poses, links

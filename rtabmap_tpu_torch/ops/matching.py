@@ -1,14 +1,17 @@
 """Descriptor similarity and exact blocked k-NN for +-1 int8 descriptors.
 
-Port of ``rtabmap_tpu/ops/matching.py`` (the parts the appearance-only
-path reaches): ``similarity_matrix``, ``hamming_matrix`` and
-``knn_blocked``, the plain version of the vocabulary 2-NN kernel
-(``ops/cuda/vocab_knn.py``). For +-1 descriptors ``hamming = (D - a.b)/2``
-and every product here is exact in float32.
+Port of ``rtabmap_tpu/ops/matching.py``: ``similarity_matrix``,
+``hamming_matrix``, ``knn_blocked`` (the plain version of the vocabulary
+2-NN kernel, ``ops/cuda/vocab_knn.py``) and the NNDR matchers of the
+visual odometry and registration (``match_nndr`` with its guess-projected
+window, ``match_nndr_bidir``, ``cross_check``, ``match_mutual_nndr``).
+For +-1 descriptors ``hamming = (D - a.b)/2`` and every product here is
+exact in float32. The float-descriptor ``l2`` metric and ``gms_filter``
+come with a later slice.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,9 +26,10 @@ _IDX_BITS = 32
 
 
 def similarity_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (Ka,D) +-1 int8, b (Kb,D) +-1 int8 -> dot similarity (Ka,Kb) f32.
-    Invalid (zeroed) descriptors give similarity 0 == hamming D/2."""
-    return a.float() @ b.float().T
+    """a (...,Ka,D) +-1 int8, b (...,Kb,D) +-1 int8 -> dot similarity
+    (...,Ka,Kb) f32. Invalid (zeroed) descriptors give similarity 0 ==
+    hamming D/2."""
+    return a.float() @ b.float().transpose(-1, -2)
 
 
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,3 +64,77 @@ def knn_blocked(query: torch.Tensor, base: torch.Tensor, k: int,
     dists = torch.where(none, 1e9, (best >> _IDX_BITS).float() * 0.5)
     idx = torch.where(none, 0, best & ((1 << _IDX_BITS) - 1)).to(torch.int32)
     return dists.float(), idx
+
+
+def distance_matrix(a: torch.Tensor, b: torch.Tensor, metric: str = "hamming") -> torch.Tensor:
+    if metric != "hamming":
+        raise NotImplementedError(
+            f"the {metric!r} metric (float descriptors) is not ported yet; it comes "
+            "with the learned-front-end slice")
+    return hamming_matrix(a, b)
+
+
+class Matches(NamedTuple):
+    """Fixed-size match set from a's perspective."""
+
+    idx: torch.Tensor      # (...,Ka) int32 index into b (best NN)
+    dist: torch.Tensor     # (...,Ka) float32 best distance
+    second: torch.Tensor   # (...,Ka) float32 second-best distance
+    valid: torch.Tensor    # (...,Ka) bool passes NNDR + validity
+
+
+_INF = 1e9
+
+
+def _reduce_top2(d: torch.Tensor, valid_rows: torch.Tensor, nndr) -> Matches:
+    """Best and second-best of each row of a masked distance matrix by two
+    min/argmin passes. ``argmin`` returns the first minimum, so ties go to
+    the lowest index as in the JAX twin; the second pass masks only the
+    winner's column, so a tied runner-up reads the same distance."""
+    best, idx = torch.min(d, dim=-1)
+    second = torch.scatter(d, -1, idx[..., None], _INF).min(dim=-1).values
+    ok = valid_rows & (best < _INF * 0.5) & (best <= nndr * second)
+    return Matches(idx=idx.to(torch.int32), dist=best, second=second, valid=ok)
+
+
+def match_nndr(desc_a, valid_a, desc_b, valid_b, nndr: float = 0.8,
+               max_dist: Optional[float] = None, guess_uv: Optional[torch.Tensor] = None,
+               uv_b: Optional[torch.Tensor] = None, window=0.0,
+               metric: str = "hamming") -> Matches:
+    """Nearest-neighbour + Lowe ratio matching a -> b, batched over leading
+    dims. With ``guess_uv``/``uv_b`` the candidates outside the ``window``
+    (pixels) around each row's guess are excluded in the same masked
+    top-2 (the guess-projected window search)."""
+    d = distance_matrix(desc_a, desc_b, metric)
+    mask = valid_b[..., None, :]
+    if guess_uv is not None and uv_b is not None:
+        du = guess_uv[..., :, None, 0] - uv_b[..., None, :, 0]
+        dv = guess_uv[..., :, None, 1] - uv_b[..., None, :, 1]
+        mask = mask & ((du * du + dv * dv) <= window * window)
+    m = _reduce_top2(torch.where(mask, d, _INF), valid_a, nndr)
+    if max_dist is not None:
+        m = m._replace(valid=m.valid & (m.dist <= max_dist))
+    return m
+
+
+def cross_check(m_ab: Matches, m_ba: Matches) -> torch.Tensor:
+    """Mutual-consistency mask for a->b matches (batched over leading dims)."""
+    idx = m_ab.idx.long()
+    back = torch.gather(m_ba.idx, -1, idx)
+    ids = torch.arange(idx.shape[-1], dtype=torch.int32, device=idx.device)
+    return m_ab.valid & torch.gather(m_ba.valid, -1, idx) & (back == ids)
+
+
+def match_nndr_bidir(desc_a, valid_a, desc_b, valid_b, nndr: float = 0.8,
+                     metric: str = "hamming") -> Tuple[Matches, Matches]:
+    """(m_ab, m_ba) from ONE distance matrix (batched over leading dims)."""
+    d = distance_matrix(desc_a, desc_b, metric)
+    m_ab = _reduce_top2(torch.where(valid_b[..., None, :], d, _INF), valid_a, nndr)
+    dt = d.transpose(-1, -2)
+    m_ba = _reduce_top2(torch.where(valid_a[..., None, :], dt, _INF), valid_b, nndr)
+    return m_ab, m_ba
+
+
+def match_mutual_nndr(desc_a, valid_a, desc_b, valid_b, nndr: float = 0.8) -> Matches:
+    m_ab, m_ba = match_nndr_bidir(desc_a, valid_a, desc_b, valid_b, nndr)
+    return m_ab._replace(valid=cross_check(m_ab, m_ba))

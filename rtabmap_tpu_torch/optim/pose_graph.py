@@ -3,20 +3,20 @@
 Port of the dense path of ``rtabmap_tpu/optim/pose_graph.py`` (the
 reference's g2o/GTSAM ``Optimizer`` role: SE(3) edges with 6x6
 information, Huber and DCS robust kernels, pose priors, a fixed root).
-Residuals and their exact per-edge Jacobians come from forward-mode
-autodiff of the SE(3) residual (``torch.func.jvp`` along each tangent
-direction, all edges at once); the normal system is assembled dense and solved by a
+Residuals and their per-edge Jacobians come in closed form (the inverse
+right Jacobian of SE(3) and the adjoint; the JAX twin differentiates the
+same residual by forward-mode autodiff); the normal system is assembled dense and solved by a
 float32 Cholesky, with the LM step accepted on the robust objective and
 the DCS anneal driven by the count of accepted steps. The iterations are a
 Python loop of device operations with no host sync. The matrix-free PCG
 solver for graphs past ``dense_threshold`` nodes is later work.
+``solve_diagnostics`` gives the engine's post-solve edge statistics.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import jvp, vmap
 
 from rtabmap_tpu_torch.device import DeviceLike, resolve_device
 from rtabmap_tpu_torch.geometry import transform as T
@@ -85,42 +85,64 @@ def _edge_residual(pose_i, pose_j, meas):
     return T.se3_log(T.compose(T.inverse(meas), T.relative(pose_i, pose_j)))
 
 
-def _jac_batched(f, primals):
-    """Per-row Jacobians of ``f`` with respect to each of its batched (B,6)
-    tangent arguments -> a tuple of (B,6,6): forward-mode derivatives along
-    every basis direction of every argument, pushed through all B rows at
-    once in one ``vmap`` (rows do not interact). These are the derivatives
-    of ``jacfwd`` under ``vmap`` over rows, without 0-dim rows, whose
-    scalar operations get float64 tangents in forward-mode AD."""
-    z = primals[0]
-    n = len(primals)
-    eye = torch.eye(6 * n, dtype=z.dtype, device=z.device)
-    tangents = [eye[:, 6 * a:6 * a + 6][:, None, :].expand(6 * n, *z.shape)
-                for a in range(n)]
-    cols = vmap(lambda *t: jvp(f, primals, t)[1])(*tangents)   # (6n,B,6)
-    return tuple(cols[6 * a:6 * a + 6].permute(1, 2, 0) for a in range(n))
+def _series_or(small, series, direct):
+    return torch.where(small, series, direct)
+
+
+def _se3_right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
+    """(...,6) [rho, phi] -> (...,6,6): d log(exp(xi) exp(d)) / d d at d = 0,
+    the inverse right Jacobian of SE(3), which is the inverse left Jacobian
+    at -xi: [[A, -A Q A], [0, A]] with A = J_l^-1(-phi) and Barfoot's
+    Q(-rho, -phi). Q's coefficients switch to their series below
+    theta = 0.5, where float32 cancellation would spoil the closed forms."""
+    rho, phi = -xi[..., :3], -xi[..., 3:]
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, 1e-12))
+    small = theta2 < 0.25
+    t4 = theta2 * theta2
+    t6 = t4 * theta2
+    s, c = torch.sin(theta), torch.cos(theta)
+    c1 = _series_or(small, 1.0 / 6 - theta2 / 120 + t4 / 5040 - t6 / 362880,
+                    (theta - s) / (theta2 * theta))
+    c2 = _series_or(small, 1.0 / 24 - theta2 / 720 + t4 / 40320 - t6 / 3628800,
+                    (theta2 + 2 * c - 2) / (2 * t4))
+    c3 = _series_or(small, 1.0 / 120 - theta2 / 2520 + t4 / 120960 - t6 / 9979200,
+                    (2 * theta - 3 * s + theta * c) / (2 * t4 * theta))
+    P, Rh = T.so3_hat(phi), T.so3_hat(rho)
+    PR, RP, PP = P @ Rh, Rh @ P, P @ P
+    PRP = PR @ P
+    Q = (0.5 * Rh + c1[..., None, None] * (PR + RP + PRP)
+         + c2[..., None, None] * (PP @ Rh + RP @ P - 3 * PRP)
+         + c3[..., None, None] * (PRP @ P + PP @ RP))
+    A = T._so3_left_jacobian_inv(phi)
+    top = torch.cat([A, -A @ Q @ A], dim=-1)
+    bottom = torch.cat([torch.zeros_like(A), A], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def _adjoint(Tm: torch.Tensor) -> torch.Tensor:
+    """(...,3,4) -> (...,6,6) adjoint for [rho, phi] twists: [[R, t^ R], [0, R]]."""
+    R = T.rotation(Tm)
+    top = torch.cat([R, T.so3_hat(T.translation(Tm)) @ R], dim=-1)
+    return torch.cat([top, torch.cat([torch.zeros_like(R), R], dim=-1)], dim=-2)
 
 
 def _edge_residual_jac(pose_i, pose_j, meas):
-    """Residuals (E,6) and exact Jacobians (E,6,6) with respect to right
-    perturbations of pose_i and pose_j."""
-
-    def f(xi, xj):
-        return _edge_residual(T.retract(pose_i, xi), T.retract(pose_j, xj), meas)
-
-    z = torch.zeros((pose_i.shape[0], 6), dtype=pose_i.dtype, device=pose_i.device)
-    return (f(z, z), *_jac_batched(f, (z, z)))
+    """Residuals (E,6) and their Jacobians (E,6,6) with respect to right
+    perturbations of pose_i and pose_j, in closed form: with
+    r = log(meas^-1 pose_i^-1 pose_j), dr/dxi_j = Jr^-1(r) and
+    dr/dxi_i = -Jr^-1(r) Ad(pose_j^-1 pose_i) (the derivatives the JAX
+    twin takes by forward-mode autodiff)."""
+    r = _edge_residual(pose_i, pose_j, meas)
+    Jj = _se3_right_jacobian_inv(r)
+    return r, -Jj @ _adjoint(T.relative(pose_j, pose_i)), Jj
 
 
 def _prior_residual_jac(pose, meas):
-    """Unary residuals log(meas^-1 * T) (P,6) and Jacobians (P,6,6) with
-    respect to a right perturbation of T."""
-
-    def f(xi):
-        return T.se3_log(T.compose(T.inverse(meas), T.retract(pose, xi)))
-
-    z = torch.zeros((pose.shape[0], 6), dtype=pose.dtype, device=pose.device)
-    return f(z), _jac_batched(f, (z,))[0]
+    """Unary residuals log(meas^-1 * T) (P,6) and Jacobians Jr^-1(r) (P,6,6)
+    with respect to a right perturbation of T."""
+    r = T.se3_log(T.compose(T.inverse(meas), pose))
+    return r, _se3_right_jacobian_inv(r)
 
 
 def _prior_blocks(g: PoseGraph, poses):
@@ -166,6 +188,22 @@ def edge_errors(g: PoseGraph):
     zero = torch.zeros_like(lin_err)
     return (torch.where(g.edge_valid, lin_err / trans_std, zero),
             torch.where(g.edge_valid, dR / rot_std, zero))
+
+
+def solve_diagnostics(g: PoseGraph):
+    """Post-solve edge diagnostics, kept on the device for one fetch: the
+    worst edge-error ratio (linear or angular, ``edge_errors``), the worst
+    angular ratio, the worst absolute linear and angular edge deviations
+    and their edge indices."""
+    lin_ratio, ang_ratio = edge_errors(g)
+    rel = T.relative(g.poses[g.edges_from], g.poses[g.edges_to])
+    dlin = (T.translation(rel) - T.translation(g.edges_meas)).abs().max(dim=-1).values
+    dang = T.rotation_angle(T.compose(T.inverse(g.edges_meas), rel))
+    neg = torch.full_like(dlin, -1.0)
+    k_lin = torch.argmax(torch.where(g.edge_valid, dlin, neg))
+    k_ang = torch.argmax(torch.where(g.edge_valid, dang, neg))
+    max_err = torch.maximum(lin_ratio.max(), ang_ratio.max())
+    return (max_err, ang_ratio.max(), dlin[k_lin], dang[k_ang], k_lin, k_ang)
 
 
 # ------------------------------------------------------------------- solvers
@@ -278,6 +316,7 @@ def optimize_dense(g: PoseGraph, iters: int = 20, damping: float = 1e-4,
     lam = torch.tensor(damping, dtype=torch.float32, device=dev)
     n_acc = torch.zeros((), dtype=torch.float32, device=dev)
     phi0 = _dcs_phi0(g, switch_mask, dcs_phi) if switch_mask is not None else None
+    cur = None
     for _ in range(iters):
         r, Ji, Jj = _edge_residual_jac(poses[g.edges_from], poses[g.edges_to], g.edges_meas)
         w = (_huber_weights(r, g.edges_info, huber_delta) if robust
@@ -297,10 +336,14 @@ def optimize_dense(g: PoseGraph, iters: int = 20, damping: float = 1e-4,
         nrm = torch.linalg.norm(dx, dim=-1, keepdim=True)
         dx = dx * torch.clamp_max(1.0 / torch.clamp_min(nrm, 1e-9), 1.0)
         cand = T.retract(poses, dx)
-        cur = _robust_cost(g, poses, robust, huber_delta, switch_mask, phi_k)
+        if cur is None or switch_mask is not None:
+            # without DCS the objective does not change between iterations,
+            # so the accepted pose's cost carries over (the same numbers)
+            cur = _robust_cost(g, poses, robust, huber_delta, switch_mask, phi_k)
         new = _robust_cost(g, cand, robust, huber_delta, switch_mask, phi_k)
         ok = torch.isfinite(new) & (new <= cur)
         poses = torch.where(ok, cand, poses)
+        cur = torch.where(ok, new, cur)
         lam = torch.where(ok, torch.clamp_min(lam / 3.0, 1e-9), torch.clamp_max(lam * 10.0, 1e8))
         n_acc = n_acc + ok.float()
     out = g._replace(poses=poses)

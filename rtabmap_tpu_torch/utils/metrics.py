@@ -1,7 +1,8 @@
 """Trajectory metrics: SE(3)-aligned ATE RMSE and relative pose error.
 
-Port of ``align_umeyama``, ``ate_rmse``, ``rpe`` and ``summarize`` from
-``rtabmap_tpu/utils/metrics.py`` (the reference's graph::calcRMSE family).
+Port of ``align_umeyama``, ``ate_rmse``, ``gt_error_stats``, ``rpe`` and
+``summarize`` from ``rtabmap_tpu/utils/metrics.py`` (the reference's
+graph::calcRMSE family).
 Host numpy in float64; ``rpe`` composes the per-step relative poses in
 float32 tensors as the JAX twin does. Poses may be arrays or tensors.
 """
@@ -62,4 +63,38 @@ def summarize(est_poses, gt_poses) -> Dict[str, float]:
     out = {"ate_rmse": ate_rmse(est_poses, gt_poses),
            "ate_rmse_scaled": ate_rmse(est_poses, gt_poses, with_scale=True)}
     out["rpe_trans"], out["rpe_rot"] = rpe(est_poses, gt_poses)
+    return out
+
+
+def gt_error_stats(est_poses, gt_poses) -> Dict[str, float]:
+    """graph::calcRMSE parity (the Gt/* statistics): anchor the estimate at
+    the first ground-truth pose (not Umeyama), then the translational and
+    rotational error statistics in metres and degrees."""
+    est = np.asarray(est_poses, np.float64)
+    gt = np.asarray(gt_poses, np.float64)
+    n = min(len(est), len(gt))
+    if n == 0:
+        return {}
+    est, gt = est[:n], gt[:n]
+
+    def to44(P):
+        M = np.tile(np.eye(4), (P.shape[0], 1, 1))
+        M[:, :3, :] = P
+        return M
+
+    E, G = to44(est), to44(gt)
+    A = (G[0] @ np.linalg.inv(E[0]))[None] @ E
+    D = np.linalg.inv(G) @ A
+    t_err = np.linalg.norm(D[:, :3, 3], axis=1)
+    r_err = np.degrees(np.arccos(np.clip((np.trace(D[:, :3, :3], axis1=1, axis2=2) - 1) / 2,
+                                         -1, 1)))
+    out = {"Gt/Localization linear error/m": float(t_err[-1]),
+           "Gt/Localization angular error/deg": float(r_err[-1])}
+    for name, err, unit in (("Translational", t_err, "m"), ("Rotational", r_err, "deg")):
+        out.update({f"Gt/{name} rmse/{unit}": float(np.sqrt((err ** 2).mean())),
+                    f"Gt/{name} mean/{unit}": float(err.mean()),
+                    f"Gt/{name} median/{unit}": float(np.median(err)),
+                    f"Gt/{name} std/{unit}": float(err.std()),
+                    f"Gt/{name} min/{unit}": float(err.min()),
+                    f"Gt/{name} max/{unit}": float(err.max())})
     return out

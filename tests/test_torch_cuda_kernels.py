@@ -9,7 +9,7 @@ Tolerance: none. The vocabulary 2-NN is integer arithmetic and both
 versions rank in (dist, idx) order; the 3-D 1-NN rounds each operation on
 its own in the same order on both sides and takes the (dist, idx)
 lexicographic minimum. Cases: K1 at the path's shapes, at its valid-prefix
-call, and at edge tiles (Q and W off every tile multiple, with ties from
+call (the BOW and RGB-D slices' end states), and at edge tiles (Q and W off every tile multiple, with ties from
 duplicated rows); K2 at the path's shapes and edges, each with and without
 a query mask, and its compaction."""
 import numpy as np
@@ -80,6 +80,30 @@ def test_knn2_kernel_valid_prefix():
     d_full, i_full = _knn2_equal([q, s, valid])
     d, i = _knn2_equal([q, s[:31853], valid[:31853]])
     assert torch.equal(d, d_full) and torch.equal(i, i_full)
+
+
+# The RGB-D slice's quantize calls: (keypoints a frame, words in the
+# vocabulary at the end of the run) of the parity sequence (384 keypoints)
+# and of the full-width sequence (512 keypoints), from the JAX package's
+# CPU runs (scripts/jax_rgbd_laps.py); the dictionary passes that prefix.
+RGBD_PREFIX = {"parity": (384, 6709), "full-width": (512, 24054)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RGBD_PREFIX))
+def test_knn2_kernel_rgbd_slice_shapes(name):
+    """K1 at the RGB-D slice's shapes: Q keypoints against the valid
+    prefix the run ends with, and one row past it (a word appended), each
+    equal to the plain version and to the whole slab."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Q, n_words = RGBD_PREFIX[name]
+    q, s, _ = _knn2_inputs(Q, 262144, 0.0, True, seed=Q)
+    for n in (n_words, n_words + 1):
+        valid = torch.arange(262144, device="cuda") < n
+        d_full, i_full = _knn2_equal([q, s, valid])
+        d, i = _knn2_equal([q, s[:n], valid[:n]])
+        assert torch.equal(d, d_full) and torch.equal(i, i_full)
 
 
 # (Q, N, invalid share, duplicated points and queries on points)

@@ -59,7 +59,15 @@ def test_entry_points_without_a_card_raise():
         pytest.skip("a CUDA card is present: device=None selects it")
     lidar_p = Parameters({"Reg/Strategy": 1})
     scan = (np.zeros((8, 3), np.float32), np.ones(8, bool))
+    from rtabmap_tpu_torch.odometry.f2m import OdometryF2M
+    from rtabmap_tpu_torch.tools.dataset_runner import run_dataset
+
+    rgbd_p = Parameters({"Tpu/VocabularyCapacity": 1024})
     for make in (lambda: Rtabmap(cam, p, node_capacity=16, words_per_frame=8),
+                 lambda: Rtabmap(cam, rgbd_p, node_capacity=16, words_per_frame=8),
+                 lambda: OdometryF2M(cam),
+                 lambda: create_odometry(cam, rgbd_p),
+                 lambda: run_dataset([], cam, rgbd_p, verbose=False),
                  lambda: FeatureExtractor(cam, p),
                  lambda: VWDictionary(capacity=1024),
                  lambda: OdometryScanF2M(),
@@ -77,10 +85,12 @@ def test_unported_paths_raise_not_implemented():
     from rtabmap_tpu_torch.utils.params import Parameters
 
     cam = C.CameraModel.make(100.0, 100.0, 80.0, 60.0, 160, 120)
-    with pytest.raises(NotImplementedError, match="RGB-D slice"):
-        Rtabmap(cam, Parameters(), device="cpu")
+    Rtabmap(cam, Parameters({"Tpu/VocabularyCapacity": 1024}), node_capacity=16,
+            words_per_frame=8, device="cpu")          # the RGB-D tick is ported
     with pytest.raises(NotImplementedError):
         Rtabmap(cam, Parameters({"RGBD/Enabled": False}), db=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        Rtabmap(cam, Parameters({"VhEp/Enabled": True}), device="cpu")
     for strategy in (2, 11):   # FAST/BRIEF, SuperPoint
         with pytest.raises(NotImplementedError):
             FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": strategy}),

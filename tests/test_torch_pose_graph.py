@@ -1,9 +1,10 @@
 """Dense pose-graph optimization: the port (device="cpu") against the JAX
 package on a noisy planar ring with loop closures and one wrong closure.
 
-Tolerances and why: residual Jacobians within 1e-5 (forward-mode autodiff
-of the same float32 SE(3) functions on both sides, summed in another
-order); optimized poses within 1e-3 and the final chi2 within 1e-3
+Tolerances and why: residual Jacobians within 1e-5 (the port's closed
+form against the JAX twin's forward-mode autodiff of the same float32
+SE(3) residual; in float64 the closed form equals PyTorch's own autodiff
+of the port's residual to 1e-8, the series cut of its coefficients); optimized poses within 1e-3 and the final chi2 within 1e-3
 relative (20 LM iterations of a float32 Cholesky of a 144 x 144 system
 whose diagonal spans 1 .. 1e8 amplify ulp differences).
 """
@@ -93,3 +94,33 @@ def test_optimize_past_the_dense_threshold_is_later_work():
     g = PG.make_graph(torch.from_numpy(init), ef, et, meas, info)
     with pytest.raises(NotImplementedError, match="optimize_pcg"):
         PG.optimize(g, dense_threshold=10)
+
+
+@pytest.mark.parametrize("scale", [1e-4, 1e-2, 0.3, 1.5])
+def test_closed_form_jacobians_equal_autodiff(scale):
+    """The closed-form edge and prior Jacobians against forward-mode
+    autodiff of the port's own residuals, in float64, from residuals near
+    zero (the solver's regime) to 1.5 rad."""
+    from torch.func import jacfwd, vmap
+
+    from rtabmap_tpu_torch.geometry import transform as T
+
+    gen = torch.Generator().manual_seed(int(scale * 1e4))
+    rnd = lambda n: torch.randn(n, 6, dtype=torch.float64, generator=gen)  # noqa: E731
+    pi, pj = T.se3_exp(rnd(64)), T.se3_exp(rnd(64))
+    meas = T.compose(T.relative(pi, pj), T.se3_exp(scale * rnd(64)))
+    z = torch.zeros(6, dtype=torch.float64)
+
+    def edge(a, b, P, Q, M):
+        return PG._edge_residual(T.retract(P, a), T.retract(Q, b), M)
+
+    def prior(a, P, M):
+        return T.se3_log(T.compose(T.inverse(M), T.retract(P, a)))
+
+    _, Ji, Jj = PG._edge_residual_jac(pi, pj, meas)
+    for k, J in ((0, Ji), (1, Jj)):
+        ref = vmap(lambda P, Q, M: jacfwd(edge, argnums=k)(z, z, P, Q, M))(pi, pj, meas)
+        np.testing.assert_allclose(J.numpy(), ref.numpy(), atol=1e-8)
+    _, Jp = PG._prior_residual_jac(pi, meas)
+    ref = vmap(lambda P, M: jacfwd(prior)(z, P, M))(pi, meas)
+    np.testing.assert_allclose(Jp.numpy(), ref.numpy(), atol=1e-8)

@@ -98,10 +98,15 @@ def test_lost_on_garbage_and_factory():
 
     p = Parameters(ICP).set("Reg/Strategy", 1)
     assert isinstance(create_odometry(None, p, device="cpu"), OdometryScanF2M)
-    for strategy in ("f2m", "f2f", "mono"):
+    for strategy in ("f2f", "mono"):
         with pytest.raises(NotImplementedError):
             create_odometry(None, None, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="RGB-D"):
-        create_odometry(None, Parameters())          # Odom/Strategy 0, Reg/Strategy 0
+    # Odom/Strategy 0, Reg/Strategy 0: the visual F2M odometry
+    from rtabmap_tpu_torch.geometry.camera import CameraModel
+    from rtabmap_tpu_torch.odometry.f2m import OdometryF2M
+
+    cam = CameraModel.make(100.0, 100.0, 80.0, 60.0, 160, 120)
+    assert isinstance(create_odometry(cam, Parameters(), device="cpu"), OdometryF2M)
+    assert isinstance(create_odometry(cam, None, strategy="f2m", device="cpu"), OdometryF2M)
     with pytest.raises(RuntimeError):
         create_odometry(None, None, strategy="loam")
