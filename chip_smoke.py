@@ -51,7 +51,24 @@ Phases — any failure ends the run with a non-zero exit code:
    1024 node slots and the 2000-point F2M map, held against the ground
    truth and the JAX CPU run's closures. Both check that the F2M map, the
    vocabulary and node slabs and the posterior lie on the card and that
-   K1 launched once per quantize call.
+   K1 launched once per quantize call;
+7. slice ``rgbd_sessions``: the map store's user path
+   (``tools/rgbd_sessions.py``) on cuda at the same full width, three
+   sessions against one SQLite store in a temporary directory: mapping
+   (the two 60-frame laps into a fresh store, ``close()``), resume
+   (``Rtabmap.load``, odometry restarted at the identity, two 85-frame
+   laps; the merged graph passes 256 nodes, so its full solves run
+   ``optimize_pcg`` at 512 padded nodes) and localization
+   (``Mem/IncrementalMemory`` false, 20 frames). Held to the ground truth
+   (no lost frame, map ATE <= 0.08 m, a localization under 0.1 m), to the
+   JAX package's lowest closure and localization counts over four seeds
+   (``scripts/jax_rgbd_sessions.py``), to a frozen map in localization
+   (WM holds only stored nodes, the node count within the STM ring plus a
+   margin, the stored sessions' rows unchanged), and to the store's rows
+   (nodes, links, one statistics row a frame). The resumed session must
+   reach ``optimize_pcg`` and link to the first session; its merged graph
+   is then solved again by ``optimize_pcg`` with the CG loop eager and as
+   the captured CUDA graph, which must agree.
 
 Each slice zeroes the launch counts of its kernels right before it and
 reads them right after; they must equal the calls the slice made (K1:
@@ -64,8 +81,10 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,9 +95,11 @@ from rtabmap_tpu_torch.ops.cloud import voxel_filter
 from rtabmap_tpu_torch.ops.cuda import build
 from rtabmap_tpu_torch.ops.cuda import nn3d as K2
 from rtabmap_tpu_torch.ops.cuda import vocab_knn as K1
+from rtabmap_tpu_torch.optim import pose_graph as PG
 from rtabmap_tpu_torch.tools import bow_laps
 from rtabmap_tpu_torch.tools import lidar_mapping as LM
 from rtabmap_tpu_torch.tools import rgbd_laps
+from rtabmap_tpu_torch.tools import rgbd_sessions
 
 # H100 SXM dense peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor op/s,
 # and FP32-pipe instructions/s outside the tensor cores: the data sheet's
@@ -136,6 +157,24 @@ JAX_RGBD_FULL_LOOPS = 61
 # Words in the vocabulary at the end of that run: the prefix K1 scans on
 # the run's last quantize calls.
 RGBD_FULL_WORDS = 24054
+
+# Words in the vocabulary at the end of the three sessions below (the
+# port's first run of them on the card): the prefix K1 scans last.
+SESSIONS_END_WORDS = 48802
+
+# The three sessions against one store (tools/rgbd_sessions.py): the JAX
+# package's CPU runs of them (scripts/jax_rgbd_sessions.py, seeds 0-3:
+# the RANSAC draws differ between the packages, and between seeds) give
+# the lowest loop closures of the mapping and resume sessions and the
+# fewest localized frames; the card must reach 90% of each.
+# Seeds 0-3: mapping 61, 56, 54, 55 loops; resume 134, 156, 156, 143
+# loops; localization 18, 16, 18, 17 frames localized.
+JAX_SESSIONS_MIN = {"mapping": ("loops", 54), "resume": ("loops", 134),
+                    "localization": ("localized", 16)}
+LOCALIZATION_ERROR_BOUND = 0.1   # tests/test_localization.py's bound
+# Frozen map: nodes past the stored ones, at most the STM ring plus this
+# margin (tests/test_localization.py's).
+FROZEN_MARGIN = 6
 
 
 def fail(msg: str):
@@ -235,6 +274,7 @@ def check_knn2():
     # full-width run's end state: RGBD_FULL_WORDS words, 512 queries
     cases = (("full-70", 400, 262144, 0, 0), ("end-state", 400, 262144, 3, 31853),
              ("rgbd-end-state", 512, 262144, 4, RGBD_FULL_WORDS),
+             ("sessions-end-state", 512, 262144, 5, SESSIONS_END_WORDS),
              ("ragged", 37, 5000, 1, 0))
     for name, Q, W, seed, n_prefix in cases:
         q, slab, valid = knn2_case(Q, W, seed, n_prefix)
@@ -598,6 +638,112 @@ def run_rgbd_slices() -> int:
     return par["vocab_knn2_launches"] + full["vocab_knn2_launches"]
 
 
+def check_session(res: dict, launches: int, frames_before: int):
+    """The checks every session shares, then the session's own."""
+    name = res["session"]
+    if launches != res["quantize_calls"] or launches == 0:
+        fail(f"{name}: vocab_knn2 launched {launches} times for {res['quantize_calls']} "
+             "quantize calls")
+    if res["lost"] != 0:
+        fail(f"{name}: {res['lost']} lost frames")
+    key, jax_min = JAX_SESSIONS_MIN[name]
+    if res[key] < max(int(0.9 * jax_min), 1):
+        fail(f"{name}: {res[key]} {key}, JAX CPU lowest over seeds {jax_min}")
+    store = res["store"]
+    if store["statistics_rows"] != frames_before + res["frames"]:
+        fail(f"{name}: {store['statistics_rows']} statistics rows for "
+             f"{frames_before + res['frames']} processed frames")
+    if name != "localization":
+        if not res["map_ate"] <= RGBD_ATE_BOUND:
+            fail(f"{name}: map ATE {res['map_ate']:.4f} m > {RGBD_ATE_BOUND} m")
+        if (store["node_rows"], store["link_rows"]) != (res["nodes"], res["links"]):
+            fail(f"{name}: the store holds {store['node_rows']} nodes and "
+                 f"{store['link_rows']} links, the map {res['nodes']} and {res['links']}")
+    if name == "resume":
+        if not res["pcg_solves"] or min(s["nodes"] for s in res["pcg_solves"]) <= 400:
+            fail("resume: no full solve went through optimize_pcg")
+        if res["inter_session_links"] == 0:
+            fail("resume: no link between the sessions")
+    if name == "localization":
+        if not res["loc_err_m"]["min"] < LOCALIZATION_ERROR_BOUND:
+            fail(f"localization: best error {res['loc_err_m']['min']} m, bound "
+                 f"{LOCALIZATION_ERROR_BOUND} m")
+        if not (res["wm_only_stored"] and res["wm_equals_stored_resident"]):
+            fail("localization: WM holds nodes that are not the stored map's")
+        if res["nodes"] > res["stored_nodes"] + res["stm_size"] + FROZEN_MARGIN:
+            fail(f"localization: {res['nodes']} nodes from {res['stored_nodes']} stored")
+        if store["node_rows_before_session"] != res["stored_nodes"]:
+            fail(f"localization: the stored sessions now have "
+                 f"{store['node_rows_before_session']} rows, {res['stored_nodes']} before")
+
+
+def check_pcg_graph(slam) -> dict:
+    """``optimize_pcg`` on the resumed map's merged graph, padded as the
+    engine pads it: the CG loop eager and as the captured CUDA graph must
+    give the same poses (within 1e-4 m: float32 atomics in ``index_add_``
+    may order sums differently); both timed (host clock to a sync)."""
+    ids, poses, ef, et, meas, info, switch, priors = slam._build_graph()
+    g, _ = slam._padded_graph(poses, ef, et, meas, info, switch, priors, 0)
+    N = g.poses.shape[0]
+    cg = int(min(max(60, N), 1024))
+    out, ms = {}, {}
+    for label, graphs in (("graph", True), ("eager", False), ("graph_again", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, chi2 = PG.optimize_pcg(g, iters=12, cg_iters=cg, graphs=graphs)
+        float(chi2)
+        ms[label] = (time.perf_counter() - t0) * 1e3
+        out[label] = res.poses[: len(ids)].cpu().numpy()
+    diff = float(np.abs(out["graph"] - out["eager"]).max())
+    row = {"slice": "rgbd_sessions", "pcg_check": {
+        "nodes": len(ids), "padded": N, "edges": len(ef), "cg_iters": cg, "lm_iters": 12,
+        "graph_ms": ms["graph_again"], "eager_ms": ms["eager"],
+        "first_graph_ms_with_capture": ms["graph"], "max_abs_diff_m": diff}}
+    print(json.dumps(row), flush=True)
+    if N <= 400:
+        fail(f"resume: the merged graph pads to {N} nodes, not past the dense solver's 400")
+    if not (np.isfinite(out["graph"]).all() and diff <= 1e-4):
+        fail(f"optimize_pcg: the captured CG loop differs from the eager one by {diff} m")
+    return row
+
+
+def run_sessions() -> int:
+    """The three sessions on the card (tools/rgbd_sessions.py); returns K1's
+    launches in them."""
+    dev = torch.device("cuda")
+    total, frames = 0, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        sessions = rgbd_sessions.iter_sessions(os.path.join(tmp, "map.db"), dev)
+        for name in rgbd_sessions.SESSIONS:
+            K1.knn2.launches = 0
+            t0 = time.perf_counter()
+            res = next(sessions)
+            launches = K1.knn2.launches
+            run = res.pop("run")
+            slam = run["slam"]
+            mem = slam.memory
+            for label, t in (("vocabulary slab", mem.vocab.slab), ("node words", mem.node_words),
+                             ("word counts", mem.word_nw), ("posterior", slam.bayes.posterior),
+                             ("F2M map points", run["odom"].state.map_pts)):
+                if t.device.type != "cuda":
+                    fail(f"{name}: {label} lies on {t.device}")
+            for st in slam.stats_history:
+                for k, v in st.data.items():
+                    if not np.isfinite(v):
+                        fail(f"{name}: statistic {k} = {v}")
+            pcg_ms = sum(s["ms"] for s in res["pcg_solves"])
+            res.update(seconds=time.perf_counter() - t0, vocab_knn2_launches=launches,
+                       time_in_solves_ms={"pcg": pcg_ms, "dense": res["dense_solves"]["ms_total"],
+                                          "process": float(np.sum(run["process_ms"]))})
+            print(json.dumps({"slice": "rgbd_sessions", **res}), flush=True)
+            check_session(res, launches, frames)
+            if name == "resume":
+                check_pcg_graph(slam)
+            frames += res["frames"]
+            total += launches
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -615,11 +761,19 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[{name}] {line.strip()}", file=sys.stderr)
 
-    k1 = check_knn2()
-    k2, k2c = check_nn3d()
-    k1["launches"] = run_slice()
-    k2["launches"], k2c["launches"] = run_lidar_slices()
-    k1["launches"] += run_rgbd_slices()
+    def phase(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        print(json.dumps({"phase": name, "seconds": time.perf_counter() - t}), flush=True)
+        return out
+
+    k1 = phase("kernels_vocab_knn2", check_knn2)
+    k2, k2c = phase("kernels_nn3d", check_nn3d)
+    k1["launches"] = phase("bow_mapping", run_slice)
+    k2["launches"], k2c["launches"] = phase("lidar_mapping", run_lidar_slices)
+    k1["launches"] += phase("rgbd_mapping", run_rgbd_slices)
+    k1["launches"] += phase("rgbd_sessions", run_sessions)
+    print(json.dumps({"total_seconds": time.perf_counter() - t0}), flush=True)
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k2c]}))

@@ -2,7 +2,7 @@
 
 Port of ``rtabmap_tpu/core/frame.py`` for the classical GFTT/BRIEF path:
 ``FrameFeatures`` (fixed-K struct of tensors, the unit of quantization),
-``extract_features`` and ``FeatureExtractor``. Strategies whose detector
+``EnvSensor``, ``extract_features`` and ``FeatureExtractor``. Strategies whose detector
 or descriptor is not ported yet, and the learned strategies, raise
 ``NotImplementedError``.
 """
@@ -16,6 +16,24 @@ import torch
 from rtabmap_tpu_torch.device import DeviceLike, resolve_device
 from rtabmap_tpu_torch.geometry import camera as C
 from rtabmap_tpu_torch.ops import features as F
+
+
+class EnvSensor(NamedTuple):
+    """Environmental sensor reading attached to a node (reference:
+    ``EnvSensor`` on SensorData), stored per node by ``memory/db.py``."""
+
+    type: int      # one of ENV_SENSOR_* below
+    value: float
+    stamp: float = 0.0
+
+
+ENV_SENSOR_UNDEFINED = 0
+ENV_SENSOR_WIFI_SIGNAL_STRENGTH = 1    # dBm
+ENV_SENSOR_AMBIENT_TEMPERATURE = 2     # celsius
+ENV_SENSOR_AMBIENT_AIR_PRESSURE = 3    # hPa
+ENV_SENSOR_AMBIENT_LIGHT = 4           # lx
+ENV_SENSOR_AMBIENT_RELATIVE_HUMIDITY = 5  # %
+ENV_SENSOR_CUSTOM1 = 6
 
 
 class FrameFeatures(NamedTuple):

@@ -18,15 +18,29 @@ Port of ``rtabmap_tpu/engine/rtabmap.py`` over two configurations:
   LM) with the ``RGBD/OptimizeMaxError`` reject, graph repair after
   repeated rejections, and the pose statistics.
 
-Raised as not yet ported, naming the slice that brings them: localization
-mode, epipolar hypothesis verification (``VhEp/Enabled``), the map store
-(``db``), multi-device meshes, laser scans (and with them neighbour-link
-refining and the scan-ICP proximity fallback), landmarks, raw-frame and
-learned-descriptor inputs, GPS priors and intermediate nodes. Not there
-yet: the initial-pose prior, the path planner and the maintenance API.
+With a map store (``db``, a ``memory/db.Database``) every tick saves its
+statistics row and, with ``Mem/BinDataKept``, the raw frame; ``close()``
+checkpoints the resident signatures, the vocabulary, the optimized poses
+and the parameters, and ``Rtabmap.load`` resumes from such a store: every
+stored signature becomes an LTM record, the last session is paged into WM,
+and ids and sessions continue. Localization mode (``Mem/IncrementalMemory``
+false) keeps the loaded map frozen: a frame's closure links update the map
+correction directly or, with ``RGBD/MaxOdomCacheSize``, after a check
+against the rolling odometry cache (``_localize_with_odom_cache``), and
+the loop threshold drops to ``RGBD/AggressiveLoopThr`` until a closure is
+in the cache. ``set_initial_pose`` seeds the map correction.
+
+Raised as not yet ported, naming the slice that brings them: epipolar
+hypothesis verification (``VhEp/Enabled``), multi-device meshes, laser
+scans (and with them neighbour-link refining, the scan-ICP proximity
+fallback and global scan-map localization), landmarks, learned-descriptor
+inputs, GPS priors and intermediate nodes. Not there yet: the path
+planner and the maintenance API.
 """
 from __future__ import annotations
 
+import os
+import resource
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -39,7 +53,7 @@ from rtabmap_tpu_torch.device import DeviceLike, resolve_device
 from rtabmap_tpu_torch.geometry import camera as C
 from rtabmap_tpu_torch.geometry import transform as T
 from rtabmap_tpu_torch.memory.memory import (
-    LINK_GLOBAL_CLOSURE, LINK_LOCAL_SPACE_CLOSURE, LINK_LOCAL_TIME_CLOSURE,
+    LINK_GLOBAL_CLOSURE, LINK_LANDMARK, LINK_LOCAL_SPACE_CLOSURE, LINK_LOCAL_TIME_CLOSURE,
     LINK_NEIGHBOR, LINK_NEIGHBOR_MERGED, LINK_POSE_PRIOR, LINK_USER_CLOSURE,
     Link, Memory, Signature,
 )
@@ -90,6 +104,13 @@ def _not_ported(what: str, slice_: str):
     return NotImplementedError(f"{what} is not ported yet; it comes with {slice_}")
 
 
+def _host_array(x) -> Optional[np.ndarray]:
+    """A raw image or depth map (tensor on any device, or array) on the host."""
+    if x is None:
+        return None
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _pad_pow2(n: int, floor: int) -> int:
     return max(1 << max(n - 1, 1).bit_length(), floor)
 
@@ -101,8 +122,6 @@ class Rtabmap:
                  db=None, node_capacity: int = 1024, words_per_frame: int = 512,
                  seed: int = 42, mesh=None, device: DeviceLike = None):
         p = params or Parameters()
-        if db is not None:
-            raise _not_ported("the map store (db)", "the memory/db.py slice")
         if mesh is not None:
             raise _not_ported("a multi-device mesh", "the multi-chip slice")
         if bool(p["VhEp/Enabled"]):
@@ -115,7 +134,7 @@ class Rtabmap:
         self.params = p
         self.cam = cam
         self.memory = Memory(p, node_capacity=node_capacity,
-                             words_per_frame=words_per_frame, device=self.device)
+                             words_per_frame=words_per_frame, db=db, device=self.device)
         self.bayes = BF.BayesFilter(
             node_capacity,
             prediction_lc=[float(x) for x in str(p["Bayes/PredictionLC"]).split()],
@@ -148,7 +167,20 @@ class Rtabmap:
         self.angular_update = float(p["RGBD/AngularUpdate"])
         self.linear_speed_update = float(p["RGBD/LinearSpeedUpdate"])
         self.angular_speed_update = float(p["RGBD/AngularSpeedUpdate"])
+        self.bin_data_kept = bool(p["Mem/BinDataKept"])
         self.retrieval_margin = 2  # graph-depth margin around the hypothesis
+
+        # localization mode: the rolling odometry cache that verifies
+        # localization links (reference: _odomCachePoses/_odomCacheConstraints,
+        # RGBD/MaxOdomCacheSize)
+        self.max_odom_cache_size = int(p["RGBD/MaxOdomCacheSize"])
+        self.localization_smoothing = bool(p["RGBD/LocalizationSmoothing"])
+        prior_err = max(float(p["RGBD/LocalizationPriorError"]), 1e-6)
+        self.localization_prior_inf = 1.0 / (prior_err * prior_err)
+        self.aggressive_loop_thr = float(p["RGBD/AggressiveLoopThr"])
+        self._odom_cache_poses: Dict[int, np.ndarray] = {}   # id -> odometry pose
+        self._odom_cache_links: Dict[Tuple[int, int], Link] = {}
+        self._pending_initial_pose: Optional[np.ndarray] = None
 
         self.optimized_poses: Dict[int, np.ndarray] = PoseStore()
         self.map_correction = np.eye(3, 4, dtype=np.float32)
@@ -168,6 +200,71 @@ class Rtabmap:
         # generator: the same samples on the CPU and on the card)
         self.generator = torch.Generator().manual_seed(seed)
         self.stats_history: List[Statistics] = []
+        # (padded nodes, LM iterations, host ms) of every graph solve
+        self.solves: List[Tuple[int, int, float]] = []
+
+    @classmethod
+    def load(cls, db, cam: C.CameraModel, params: Optional[Parameters] = None,
+             node_capacity: int = 1024, words_per_frame: int = 512,
+             new_session: bool = True, **kw) -> "Rtabmap":
+        """Resume from a map store (reference: Rtabmap::init on an existing
+        database, Memory::loadDataFromDb): the vocabulary from the admin
+        row, every stored signature as an LTM record, the last session
+        paged into WM, ids continued, a new session unless
+        ``new_session`` is false, the optimized poses restored. ``kw``
+        goes to the constructor (``device``, ``seed``)."""
+        from rtabmap_tpu_torch.vocab.dictionary import VWDictionary
+
+        admin = db.load_admin()
+        slam = cls(cam, params, db=db, node_capacity=node_capacity,
+                   words_per_frame=words_per_frame, **kw)
+        mem = slam.memory
+        if admin["vocab"] is not None:
+            v = admin["vocab"]
+            slab = np.zeros((v["capacity"], v["slab"].shape[1]), np.int8)
+            slab[: v["n_words"]] = v["slab"]
+            valid = np.arange(v["capacity"]) < v["n_words"]
+            mem.vocab = VWDictionary.from_state(
+                {"slab": slab, "word_valid": valid, "n_words": v["n_words"],
+                 "nndr": v["nndr"], "incremental": v["incremental"]}, device=slam.device)
+            mem.word_nw = torch.zeros((mem.vocab.capacity,), dtype=torch.float32,
+                                      device=slam.device)
+        last_map = db.max_map_id()
+        for sid in db.all_node_ids():
+            sig = db.load_signature(sid)
+            if sig is not None:
+                mem.signatures[sid] = sig
+        last_ids = sorted(i for i, s in mem.signatures.items() if s.map_id == last_map)
+        budget = mem.node_capacity - mem.stm_size - 2
+        for sid in last_ids[-budget:]:
+            sig = mem.signatures[sid]
+            sig.in_ltm = False
+            mem._insert_slab(sig)
+            mem._wm_append(sid)
+        mem._next_id = db.max_node_id() + 1
+        mem._map_id = last_map + 1 if new_session else last_map
+        slam.optimized_poses.update(admin["optimized_poses"])
+        return slam
+
+    def close(self, map2d=None, opt_cloud=None, opt_mesh=None):
+        """Checkpoint the map into the store (reference: Memory::close and
+        saveOptimizedPoses): the WM and STM signatures, the parameters,
+        the optimized poses, the vocabulary and any derived products
+        given; then wait for the writes."""
+        db = self.memory.db
+        if db is None:
+            return
+        for i in list(self.memory.wm) + list(self.memory.stm):
+            db.save_signature(self.memory.get(i))
+        db.save_admin(params=self.params.overrides(), optimized_poses=self.optimized_poses,
+                      vocab=self.memory.vocab, map2d=map2d, opt_cloud=opt_cloud,
+                      opt_mesh=opt_mesh)
+        db.flush()
+
+    def set_initial_pose(self, pose) -> None:
+        """Seed the map correction: the next processed frame is placed at
+        ``pose`` in the map frame (reference: Rtabmap::setInitialPose)."""
+        self._pending_initial_pose = np.asarray(pose, np.float32)
 
     def trigger_new_map(self):
         """(reference: Rtabmap::triggerNewMap) clear the optimized-pose cache
@@ -179,9 +276,12 @@ class Rtabmap:
         self.memory.new_map()
         self.bayes.reset()
         self.last_hypothesis = (0, 0.0)
-        self.optimized_poses.clear()
-        self.map_correction = np.eye(3, 4, dtype=np.float32)
-        self._new_session_rebase = True
+        self._odom_cache_poses.clear()
+        self._odom_cache_links.clear()
+        if self.memory.incremental:
+            self.optimized_poses.clear()
+            self.map_correction = np.eye(3, 4, dtype=np.float32)
+            self._new_session_rebase = True
 
     # ---------------------------------------------------------------- process
     def process(self, frame: FrameFeatures, odom_pose, covariance=None,
@@ -193,7 +293,6 @@ class Rtabmap:
                 ("a laser scan", scan, "the engine's scan stages (neighbour-link "
                  "refining, the scan-ICP proximity fallback; ROADMAP 'Next' c.)"),
                 ("landmarks", landmarks, "a later slice"),
-                ("raw frames", raw, "the memory/db.py slice"),
                 ("learned float descriptors", descf, "the learned-model slice")):
             if value is not None:
                 raise _not_ported(f"process() with {what}", slice_)
@@ -220,6 +319,10 @@ class Rtabmap:
                 self.map_correction = np.asarray(T.np_compose(
                     self._last_localization_pose, T.np_inverse(odom_pose)), np.float32)
             self._new_session_rebase = False
+        if self._pending_initial_pose is not None:
+            self.map_correction = np.asarray(T.np_compose(
+                self._pending_initial_pose, T.np_inverse(odom_pose)), np.float32)
+            self._pending_initial_pose = None
         mc_before = np.asarray(self.map_correction).copy()
         n_sigs_before = len(self.memory.signatures)
 
@@ -244,6 +347,13 @@ class Rtabmap:
                 sig.velocity = np.asarray(velocity, np.float32)
             if gps is not None:
                 sig.gps = np.asarray(gps, np.float64)  # geodetic degrees: f64
+            if raw is not None and self.bin_data_kept and self.memory.db is not None:
+                # raw sensor data kept with the node (Mem/BinDataKept), copied
+                # to the host here, compressed on the store's writer thread
+                with st.time_stage("TimingMem/Compressing data/ms"):
+                    self.memory.db.save_raw_frame(
+                        sig.id, map_id=sig.map_id, stamp=stamp, pose=odom_pose,
+                        image=_host_array(raw[0]), depth=_host_array(raw[1]))
             neighbor_link = None
             prev = self.memory.get(prev_id) if prev_id is not None else None
             if prev is not None and prev.map_id != sig.map_id:
@@ -314,6 +424,23 @@ class Rtabmap:
             prox_ctx = None   # stale B side: re-run synchronously below
         st.add("Memory/RehearsalMerged", float(merged_id))
 
+        # --- B2. localization mode: the rolling odometry cache (poses and
+        # neighbour constraints the localization links are checked against)
+        if not self.memory.incremental and self.max_odom_cache_size > 0:
+            if self._odom_cache_poses:
+                last_id = next(reversed(self._odom_cache_poses))
+                t_oc = np.asarray(T.np_relative(self._odom_cache_poses[last_id], odom_pose),
+                                  np.float32)
+                self._odom_cache_links[(last_id, sig.id)] = Link(
+                    last_id, sig.id, LINK_NEIGHBOR, t_oc, info_from_cov(cov))
+            self._odom_cache_poses[sig.id] = odom_pose
+            with st.time_stage("Timing/Cleaning neighbors/ms"):
+                while len(self._odom_cache_poses) > self.max_odom_cache_size:
+                    old = next(iter(self._odom_cache_poses))
+                    del self._odom_cache_poses[old]
+                    self._odom_cache_links = {k: v for k, v in self._odom_cache_links.items()
+                                              if old not in k}
+
         # --- D. appearance hypothesis accept
         bad_sig = (self.memory.bad_signatures_ignored and
                    self.memory.is_bad_signature(sig))
@@ -338,8 +465,16 @@ class Rtabmap:
 
         # --- accept rules (reference order: single hypothesis -> loop ratio)
         _t_hyp = time.perf_counter()
+        loop_thr = self.loop_thr
+        if (not self.memory.incremental and self.rgbd_mode
+                and loop_thr > self.aggressive_loop_thr
+                and not any(lk.type in (LINK_GLOBAL_CLOSURE, LINK_LOCAL_SPACE_CLOSURE,
+                                        LINK_LANDMARK)
+                            for lk in self._odom_cache_links.values())):
+            # not localized on the map yet: loop aggressively on it
+            loop_thr = self.aggressive_loop_thr
         accepted_id = 0
-        if hypothesis_id > 0 and hypothesis_value >= self.loop_thr:
+        if hypothesis_id > 0 and hypothesis_value >= loop_thr:
             if len(wm_ids) <= 1:
                 log.debug("rejected hypothesis: single hypothesis")
             elif (self.loop_ratio > 0 and
@@ -352,8 +487,7 @@ class Rtabmap:
         st.add("Timing/Hypotheses creation/ms", (time.perf_counter() - _t_hyp) * 1000.0)
         st.add("Loop/Accepted hypothesis id/", accepted_id)
         st.add("Loop/RejectedHypothesis/",
-               float(hypothesis_id > 0 and hypothesis_value >= self.loop_thr
-                     and accepted_id == 0))
+               float(hypothesis_id > 0 and hypothesis_value >= loop_thr and accepted_id == 0))
         if self.last_hypothesis[1] > 0:
             st.add("Loop/Hypothesis ratio/", hypothesis_value / self.last_hypothesis[1])
         self.last_hypothesis = (hypothesis_id, hypothesis_value)
@@ -366,6 +500,10 @@ class Rtabmap:
                            if (s := self.memory.get(i)) is not None and s.in_ltm]
                 st.add("Loop/Reactivate id/", ltm_ids[0] if ltm_ids else 0)
                 if ltm_ids:
+                    if self.memory.db is not None:
+                        # the store's pending writes land before nodes are read back
+                        with st.time_stage("Timing/Joining trash/ms"):
+                            self.memory.db.flush()
                     with st.time_stage("Timing/Reactivation/ms"):
                         got = self.memory.retrieve(ltm_ids)
                     st.add("Memory/Retrieved/", len(got))
@@ -446,8 +584,11 @@ class Rtabmap:
                     st.add("Memory/Closest node distance/m", self._last_closest_node[0])
                     st.add("Memory/Closest node angle/rad", self._last_closest_node[1])
 
-        # --- I. graph optimization (+ max-error reject gate)
-        if self.rgbd_mode:
+        # --- I. graph optimization (+ max-error reject gate), or in
+        # localization mode the map correction from this frame's link
+        if not self.memory.incremental:
+            accepted_id = self._localize(st, sig, odom_pose, links_added, accepted_id)
+        elif self.rgbd_mode:
             with st.time_stage("Timing/Map optimization/ms"):
                 self._optimize(st, links_added)
         else:
@@ -457,14 +598,14 @@ class Rtabmap:
         # delete the worst old closure links
         if st.get("Loop/Rejected by optimization/") > 0:
             self._consecutive_rejections += 1
-            if self._consecutive_rejections >= 2:
+            if self.memory.incremental and self._consecutive_rejections >= 2:
                 removed = self.repair_graph(max_removals=2)
                 st.add("Loop/Optimization max error removed count/", len(removed))
                 if removed:
                     st.add("Loop/Optimization max error removed from id/", removed[0][0])
                     st.add("Loop/Optimization max error removed to id/", removed[0][1])
                 self._consecutive_rejections = 0
-        elif accepted_id > 0:
+        elif accepted_id > 0 or st.get("Loop/Localized/") > 0:
             self._consecutive_rejections = 0
 
         # --- K. transfer (WM -> LTM)
@@ -481,6 +622,9 @@ class Rtabmap:
         mem = self.memory
         st.add("Memory/Signatures removed/",
                max(n_sigs_before + 1 - len(mem.signatures), 0))
+        if not mem.incremental:
+            st.add("Memory/Odom cache poses/", len(self._odom_cache_poses))
+            st.add("Memory/Odom cache links/", len(self._odom_cache_links))
         _t_fin = time.perf_counter()
         st.add("Memory/Working memory size/", len(mem.wm))
         st.add("Memory/Short time memory size/", len(mem.stm))
@@ -488,7 +632,7 @@ class Rtabmap:
                sum(1 for i in mem.stm if (s := mem.get(i)) is not None and s.weight < 0))
         st.add("Memory/Working memory inter size/", mem.n_inter_wm)
         st.add("Proximity/Space scan paths checked/", 0)
-        if accepted_id > 0:
+        if accepted_id > 0 or st.get("Loop/Localized/") > 0:
             # localization covariance summary (MapToBase lin var/std); the
             # appearance-only closure has no registration: zero variance
             lin_var = (mem.last_registration.get("lin_variance", 0.0)
@@ -506,12 +650,13 @@ class Rtabmap:
         st.add("Loop/Id/", accepted_id)
         st.add("Loop/Map id/", sig.map_id)
         st.add("Loop/Last id/", self.loop_closure_id)
-        if accepted_id > 0 or st.get("Proximity/Space links added/") > 0:
+        if (accepted_id > 0 or st.get("Loop/Localized/") > 0
+                or st.get("Proximity/Space links added/") > 0):
             # a (re)localization event resets the odometer
             self._distance_at_last_loc = self._distance_travelled
+        if mem.db is not None and os.path.exists(mem.db.path):
+            st.add("Memory/Database memory used/MB", os.path.getsize(mem.db.path) / 1e6)
         with st.time_stage("Timing/RAM estimation/ms"):
-            import resource
-
             st.add("Memory/RAM usage/MB",
                    resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0)
             slab_bytes = (mem.node_words.numel() * 4 + mem.node_uv.numel() * 4
@@ -526,7 +671,114 @@ class Rtabmap:
         st.add("Timing/Finalizing statistics/ms", (time.perf_counter() - _t_fin) * 1000.0)
         st.add("Timing/Total/ms", timer.elapsed() * 1000.0)
         self.stats_history.append(st)
+        if mem.db is not None:
+            # the tick's statistics row (DBDriver::addStatistics)
+            mem.db.save_statistics(sig.id, stamp, st.data)
         return st
+
+    def _localize(self, st: Statistics, sig: Signature, odom_pose, links_added: List[Link],
+                  accepted_id: int) -> int:
+        """Localization mode's stage I: the first link added to this frame
+        moves the map correction, checked against the odometry cache when
+        it holds more than this frame; a link the cache contradicts is
+        removed. Returns the accepted hypothesis id (0 once rejected)."""
+        loc_link = links_added[0] if links_added else None
+        anchor = (self.optimized_poses.get(loc_link.from_id)
+                  if loc_link is not None and loc_link.to_id == sig.id else None)
+        if anchor is not None:
+            if (self.max_odom_cache_size > 0 and len(self._odom_cache_poses) > 1
+                    and sig.id in self._odom_cache_poses):
+                with st.time_stage("Timing/Map optimization/ms"):
+                    corrected = self._localize_with_odom_cache(
+                        sig, [lk for lk in links_added if lk.to_id == sig.id], odom_pose, st)
+                if corrected is not None:
+                    self.map_correction = np.asarray(T.np_compose(
+                        corrected, T.np_inverse(odom_pose)), np.float32)
+                    st.add("Loop/Localized/", 1)
+                else:
+                    cleared = 0
+                    for lk in links_added:
+                        if lk.to_id == sig.id:
+                            self.memory.remove_link(lk.from_id, lk.to_id)
+                            cleared += 1
+                    st.add("Loop/Rejected by optimization/", 1)
+                    st.add("Loop/Proximity links cleared/", cleared)
+                    self.loop_closure_id = 0
+                    accepted_id = 0
+            else:
+                corrected = np.asarray(T.np_compose(anchor, loc_link.transform), np.float32)
+                self.map_correction = np.asarray(T.np_compose(
+                    corrected, T.np_inverse(odom_pose)), np.float32)
+                st.add("Loop/Localized/", 1)
+        self.optimized_poses[sig.id] = np.asarray(
+            T.np_compose(self.map_correction, odom_pose), np.float32)
+        return accepted_id
+
+    def _localize_with_odom_cache(self, sig: Signature, loc_links: List[Link], odom_pose,
+                                  st: Statistics) -> Optional[np.ndarray]:
+        """Check and smooth a localization with the odometry cache
+        (reference: Rtabmap.cpp's localization-mode cache optimization):
+        optimize the cache poses with the map anchors held by priors of
+        RGBD/LocalizationPriorError, and reject the localization when the
+        worst edge-error ratio passes RGBD/OptimizeMaxError (the link would
+        teleport the robot against its odometry). Returns the corrected
+        map pose of the current node, or None to reject."""
+        cache_ids = list(self._odom_cache_poses)
+        id_set = set(cache_ids)
+        cons: List[Link] = list(self._odom_cache_links.values()) + list(loc_links)
+        anchors = sorted({e for lk in cons for e in (lk.from_id, lk.to_id)
+                          if e not in id_set and e in self.optimized_poses})
+        if not anchors:
+            return None
+        ids = anchors + cache_ids
+        idx = {i: k for k, i in enumerate(ids)}
+        mc = np.asarray(self.map_correction, np.float32)
+        poses = np.stack([np.asarray(self.optimized_poses[i], np.float32) for i in anchors]
+                         + [T.np_compose(mc, np.asarray(self._odom_cache_poses[i], np.float32))
+                            for i in cache_ids]).astype(np.float32)
+        ef, et, meas, info = [], [], [], []
+        for lk in cons:
+            if lk.from_id in idx and lk.to_id in idx:
+                ef.append(idx[lk.from_id])
+                et.append(idx[lk.to_id])
+                meas.append(np.asarray(lk.transform, np.float32))
+                info.append(np.asarray(lk.information, np.float32))
+        if not ef:
+            return None
+        N, E, P = len(ids), len(ef), len(anchors)
+        Np, Ep, Pp = (1 << max(n - 1, 1).bit_length() for n in (N, E, P))
+        eye34 = np.eye(3, 4, dtype=np.float32)
+        pad34 = lambda a, n: np.concatenate([a, np.tile(eye34, (n, 1, 1))])  # noqa: E731
+        g = PG.make_graph(
+            pad34(poses, Np - N), np.concatenate([ef, np.zeros(Ep - E, np.int64)]),
+            np.concatenate([et, np.zeros(Ep - E, np.int64)]), pad34(np.stack(meas), Ep - E),
+            np.concatenate([np.stack(info), np.tile(np.eye(6, dtype=np.float32), (Ep - E, 1, 1))]),
+            node_valid=np.arange(Np) < N, edge_valid=np.arange(Ep) < E, root=0,
+            priors_idx=np.concatenate([np.arange(P), np.zeros(Pp - P, np.int64)]),
+            priors_meas=pad34(poses[:P], Pp - P),
+            priors_info=np.concatenate([
+                np.tile(np.eye(6, dtype=np.float32) * np.float32(self.localization_prior_inf),
+                        (P, 1, 1)), np.zeros((Pp - P, 6, 6), np.float32)]),
+            prior_valid=np.arange(Pp) < P, device=self.device)
+        out, _chi2 = PG.optimize(g, iters=12)
+        max_err = float(PG.solve_diagnostics(out)[0])
+        st.add("Loop/Optimization max error ratio/", max_err)
+        new_poses = out.poses.cpu().numpy()
+        if not np.isfinite(new_poses[:N]).all() or not np.isfinite(max_err):
+            return None
+        if self.max_error > 0 and max_err > self.max_error:
+            return None
+        # accepted: the links join the cache, so later frames are checked
+        # against them too; with RGBD/LocalizationSmoothing a link keeps
+        # its optimized relative transform
+        cur = new_poses[idx[sig.id]]
+        for lk in loc_links:
+            t = lk.transform
+            if self.localization_smoothing:
+                t = T.np_relative(new_poses[idx[lk.from_id]], cur)
+            self._odom_cache_links[(lk.from_id, lk.to_id)] = Link(
+                lk.from_id, lk.to_id, lk.type, t, lk.information)
+        return cur
 
     def _pose_statistics(self, st: Statistics, sig: Signature, mc_before):
         """Odom-correction / MapToOdom / MapToBase / Gt/* statistics, host
@@ -792,16 +1044,11 @@ class Rtabmap:
                 np.stack(info) if info else np.zeros((0, 6, 6), np.float32),
                 np.array(switch, bool), priors)
 
-    def _solve_padded(self, poses, ef, et, meas, info, switch, priors,
-                      root_idx: int, st: Optional[Statistics] = None):
-        """Pad to power-of-two buckets (floors 32 nodes, 64 edges, 16
-        priors: the same buckets as the JAX twin, so ``optimize`` picks the
-        same solver on the same graph), build the PoseGraph on the device
-        and solve honouring Optimizer/Iterations with the Optimizer/Epsilon
-        stop (chunks of up to 12 LM iterations, stop when a chunk improves
-        chi2 by less than epsilon relative). Returns (out_graph, chi2,
-        iters_done, max_err, diagnostics)."""
-        dev = self.device
+    def _padded_graph(self, poses, ef, et, meas, info, switch, priors, root_idx: int):
+        """The PoseGraph on the device, padded to power-of-two buckets
+        (floors 32 nodes, 64 edges, 16 priors: the same buckets as the JAX
+        twin, so ``optimize`` picks the same solver on the same graph), and
+        its padded switchable-edge mask."""
         N, E = poses.shape[0], len(ef)
         Np, Ep = _pad_pow2(N, 32), _pad_pow2(E, 64)
         eye34 = np.eye(3, 4, dtype=np.float32)
@@ -824,13 +1071,26 @@ class Rtabmap:
         g = PG.make_graph(poses_p, ef_p, et_p, meas_p, info_p,
                           node_valid=np.arange(Np) < N, edge_valid=np.arange(Ep) < E,
                           root=root_idx, priors_idx=pr_idx, priors_meas=pr_meas,
-                          priors_info=pr_info, prior_valid=prior_valid, device=dev)
+                          priors_info=pr_info, prior_valid=prior_valid, device=self.device)
+        switch_p = torch.as_tensor(np.concatenate([switch, np.zeros(Ep - E, bool)]),
+                                   device=self.device)
+        return g, switch_p
+
+    def _solve_padded(self, poses, ef, et, meas, info, switch, priors,
+                      root_idx: int, st: Optional[Statistics] = None):
+        """Solve the padded graph (``_padded_graph``) honouring
+        Optimizer/Iterations with the Optimizer/Epsilon stop (chunks of up
+        to 12 LM iterations, stop when a chunk improves chi2 by less than
+        epsilon relative). Returns (out_graph, chi2, iters_done, max_err,
+        diagnostics)."""
+        dev = self.device
+        E = len(ef)
+        _t_solve = time.perf_counter()
+        g, switch_p = self._padded_graph(poses, ef, et, meas, info, switch, priors, root_idx)
         budget = max(self.optimizer_iterations, 1)
         chunk = min(12, budget)
         if self.optimizer_robust:
             # DCS switchable closures; the anneal spans one optimize() call
-            switch_p = torch.as_tensor(np.concatenate([switch, np.zeros(Ep - E, bool)]),
-                                       device=dev)
             out, chi2 = PG.optimize(g, iters=chunk, switch_mask=switch_p)
             chi2 = float(chi2)
             iters_done = chunk
@@ -851,6 +1111,8 @@ class Rtabmap:
         diag = tuple(torch.stack([torch.as_tensor(x, dtype=torch.float32, device=dev)
                                   for x in PG.solve_diagnostics(out)]).cpu().tolist())
         max_err = diag[0] if E else 0.0
+        self.solves.append((g.poses.shape[0], iters_done,
+                            (time.perf_counter() - _t_solve) * 1000.0))
         if st is not None:
             st.add("Loop/Optimization max error ratio/", max_err)
             st.add("Loop/Optimization error/", float(chi2))

@@ -14,9 +14,15 @@ several candidates register as one batched call, and its asynchronous
 form enqueues the work and starts non-blocking copies into pinned host
 memory, collected with one synchronization.
 
+With a map store (``db``, a ``memory/db.Database``) a signature moved to
+LTM, reduced or merged away is saved or deleted there, a removed link is
+deleted there, and a retrieval of an id that is not in ``signatures``
+loads it from there. In localization mode (``Mem/IncrementalMemory``
+false) the map is frozen: signatures leaving the STM are deleted instead
+of joining WM, and rehearsal only accumulates weight.
+
 Later slices: the optical-flow (``Vis/CorType`` 1), SuperGlue
-(``Vis/CorNNType`` 6) and GMS (``Vis/CorNNType`` 7) correspondence modes,
-and the map store (``memory/db.py``).
+(``Vis/CorNNType`` 6) and GMS (``Vis/CorNNType`` 7) correspondence modes.
 """
 from __future__ import annotations
 
@@ -80,6 +86,7 @@ class Signature:
                                  # a deferred create is in flight
     in_ltm: bool = False
     label: str = ""
+    scan: Optional[bytes] = None  # a stored scan blob, carried unchanged
     user_data: Optional[bytes] = None
     grid: Optional[object] = None
     env_sensors: list = field(default_factory=list)
@@ -241,18 +248,15 @@ class Memory:
 
     def __init__(self, params: Optional[Parameters] = None,
                  node_capacity: int = 1024, words_per_frame: int = 512,
-                 vocab: Optional[VWDictionary] = None, device: DeviceLike = None):
+                 vocab: Optional[VWDictionary] = None, db=None, device: DeviceLike = None):
         p = params or Parameters()
         self.device = resolve_device(device)
         self.params = p
+        self.db = db
         self.stm_size = int(p["Mem/STMSize"])
         self.rehearsal_sim = float(p["Mem/RehearsalSimilarity"])
         self.recent_wm_ratio = float(p["Mem/RecentWmRatio"])
         self.incremental = bool(p["Mem/IncrementalMemory"])
-        if not self.incremental:
-            raise NotImplementedError(
-                "Mem/IncrementalMemory=false (localization mode) is not ported "
-                "yet; it comes with the pose-graph slice")
         self.rehearsal_id_updated_to_new = bool(p["Mem/RehearsalIdUpdatedToNewOne"])
         self.rehearsal_weight_ignored_while_moving = bool(
             p["Mem/RehearsalWeightIgnoredWhileMoving"])
@@ -451,19 +455,26 @@ class Memory:
             self.signatures[from_id].links.pop(to_id, None)
         if to_id in self.signatures:
             self.signatures[to_id].links.pop(from_id, None)
+        # the stored rows too: re-saving a signature upserts its remaining
+        # links but deletes none, so a removed closure would come back
+        if self.db is not None:
+            self.db.delete_link(from_id, to_id)
 
     # -------------------------------------------------------------- lifecycle
     def add_to_stm(self, sig: Signature, neighbor_link: Optional[Link] = None):
         """(reference: Memory::addSignatureToStm.) Signatures leaving the
-        STM are promoted to WM (reduced first with Mem/ReduceGraph)."""
+        STM are promoted to WM (reduced first with Mem/ReduceGraph); in
+        localization mode they are deleted, and the loaded map stays
+        frozen."""
         if neighbor_link is not None:
             self.add_link(neighbor_link)
         self.stm.append(sig.id)
         while len(self.stm) > self.stm_size:
             moved = self.stm.pop(0)
-            if self.reduce_graph and self.reduce_node(moved):
-                continue
-            self._wm_append(moved)
+            if not self.incremental:
+                self.delete_signature(moved)
+            elif not (self.reduce_graph and self.reduce_node(moved)):
+                self._wm_append(moved)
 
     def _wm_append(self, sid: int):
         self.wm.append(sid)
@@ -528,6 +539,10 @@ class Memory:
         self.last_rehearsal_id = prev.id if sim >= self.rehearsal_sim else 0
         if sim < self.rehearsal_sim:
             return 0
+        if not self.incremental:
+            # localization mode: weight accumulates on the transient node
+            sig.weight = sig.weight + 1 + prev.weight
+            return 0
         return self.rehearsal_merge(prev.id, sig.id)
 
     def rehearsal_merge(self, old_id: int, new_id: int) -> int:
@@ -537,7 +552,7 @@ class Memory:
         the surviving id, or 0."""
         old = self.signatures.get(old_id)
         new = self.signatures.get(new_id)
-        if old is None or new is None:
+        if old is None or new is None or not self.incremental:
             return 0
         lk = old.links.get(new_id)
         if lk is not None and lk.type not in (LINK_NEIGHBOR, LINK_NEIGHBOR_MERGED):
@@ -575,6 +590,8 @@ class Memory:
             keep, drop = old, new
         keep.weight = max(drop.weight, 0) + keep.weight + 1
         self.remove_node(drop.id)
+        if self.db is not None:
+            self.db.delete_node(drop.id)
         return keep.id
 
     def reduce_node(self, sid: int) -> int:
@@ -610,6 +627,9 @@ class Memory:
                         continue
                     t = T.np_compose(inv, np.asarray(nbl.transform, np.float32))
                     self.add_link(Link(j, k, LINK_NEIGHBOR_MERGED, t, nbl.information))
+        if self.db is not None:   # kept in the store, linked (keepLinkedInDb)
+            s.in_ltm = True
+            self.db.save_signature(s)
         self.remove_node(sid)
         return reduced_to
 
@@ -636,18 +656,26 @@ class Memory:
         return [s.id for s in cands[:count]]
 
     def move_to_ltm(self, sid: int):
-        """Spill: remove from WM and the slabs; the record stays on the host."""
+        """Spill: remove from WM and the slabs; the record stays on the host
+        and is saved to the store when one is attached."""
         sig = self.signatures[sid]
         self._remove_slab(sig)
         self._wm_discard(sid)
         sig.in_ltm = True
+        if self.db is not None:
+            self.db.save_signature(sig)
 
     def retrieve(self, ids: List[int]) -> List[int]:
-        """Page LTM signatures back into WM slots (reference:
+        """Page LTM signatures back into WM slots, loading from the store
+        an id that is not in ``signatures`` (reference:
         Memory::reactivateSignatures)."""
         out = []
         for sid in ids:
             sig = self.signatures.get(sid)
+            if sig is None and self.db is not None:
+                sig = self.db.load_signature(sid)
+                if sig is not None:
+                    self.signatures[sid] = sig
             if sig is None or not sig.in_ltm:
                 continue
             if not self._free_slots:

@@ -1,21 +1,28 @@
-"""SE(3) pose-graph optimization: Levenberg-Marquardt on a dense system.
+"""SE(3) pose-graph optimization: Levenberg-Marquardt, dense or matrix-free.
 
-Port of the dense path of ``rtabmap_tpu/optim/pose_graph.py`` (the
-reference's g2o/GTSAM ``Optimizer`` role: SE(3) edges with 6x6
-information, Huber and DCS robust kernels, pose priors, a fixed root).
-Residuals and their per-edge Jacobians come in closed form (the inverse
-right Jacobian of SE(3) and the adjoint; the JAX twin differentiates the
-same residual by forward-mode autodiff); the normal system is assembled dense and solved by a
-float32 Cholesky, with the LM step accepted on the robust objective and
-the DCS anneal driven by the count of accepted steps. The iterations are a
-Python loop of device operations with no host sync. The matrix-free PCG
-solver for graphs past ``dense_threshold`` nodes is later work.
-``solve_diagnostics`` gives the engine's post-solve edge statistics.
+Port of ``rtabmap_tpu/optim/pose_graph.py`` (the reference's g2o/GTSAM
+``Optimizer`` role: SE(3) edges with 6x6 information, Huber and DCS robust
+kernels, pose priors, a fixed root). Residuals and their per-edge
+Jacobians come in closed form (the inverse right Jacobian of SE(3) and the
+adjoint; the JAX twin differentiates the same residual by forward-mode
+autodiff). Up to ``dense_threshold`` nodes the normal system is assembled
+dense and solved by a float32 Cholesky (``optimize_dense``); past it,
+``optimize_pcg`` solves each step by a fixed number of Jacobi-
+preconditioned conjugate-gradient iterations whose H x product is a gather
+and a scatter over the edges. Both accept an LM step on the robust
+objective and drive the DCS anneal by the count of accepted steps; the
+iterations are Python loops of device operations with no host sync
+(acceptance is a ``torch.where``). On the card the fixed-length CG loop of
+a shape bucket is captured once in a CUDA graph and replayed: one replay
+a step where the eager loop launches about 19 operations an iteration.
+``solve_diagnostics`` gives the engine's post-solve edge statistics and
+``optimize_poses_dict`` the tool-side solve over id -> pose dicts.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from rtabmap_tpu_torch.device import DeviceLike, resolve_device
@@ -350,15 +357,234 @@ def optimize_dense(g: PoseGraph, iters: int = 20, damping: float = 1e-4,
     return out, graph_chi2(out)
 
 
+def _hx_product(Jc, info_w, idx2, node_blocks, x):
+    """Matrix-free H @ x (x (N,6)) by a gather and a scatter over the edges:
+    y_e = Ji x_from + Jj x_to (``Jc`` (E,6,12) is [Ji Jj], ``idx2`` (2E,)
+    each edge's from and to indices in turn), then Jc^T Omega y_e scattered
+    back to both nodes, plus the per-node blocks (damping, gauge clamp,
+    priors). As in the twin, Omega multiplies y after the two Jacobian
+    products have cancelled: an edge block Jc^T Omega Jc formed first would
+    cancel at the scale of Omega (1e8 on some odometry edges) in float32."""
+    E = Jc.shape[0]
+    y = info_w @ (Jc @ x[idx2].reshape(E, 12, 1))
+    out = (node_blocks @ x.unsqueeze(-1)).squeeze(-1)
+    return out.index_add_(0, idx2, (Jc.transpose(-1, -2) @ y).reshape(2 * E, 6))
+
+
+def _cg(Jc, info_w, idx2, node_blocks, minv, b, cg_iters: int):
+    """``cg_iters`` Jacobi-preconditioned conjugate-gradient iterations on
+    H dx = b from dx = 0, with no early exit (the twin's fixed-length
+    ``lax.scan``) and no host sync."""
+    x = torch.zeros_like(b)
+    rr = b.clone()
+    z = minv * b
+    p = z.clone()
+    rz = (b * z).sum()
+    for _ in range(cg_iters):
+        Ap = _hx_product(Jc, info_w, idx2, node_blocks, p)
+        alpha = rz / torch.clamp_min((p * Ap).sum(), 1e-12)
+        x.addcmul_(alpha, p)
+        rr.addcmul_(alpha, Ap, value=-1.0)
+        torch.mul(minv, rr, out=z)
+        rz_new = (rr * z).sum()
+        p.mul_(rz_new / torch.clamp_min(rz, 1e-12)).add_(z)
+        rz = rz_new
+    return x
+
+
+class _CapturedCG:
+    """``_cg`` of one shape bucket captured in a CUDA graph: inputs are
+    copied into static buffers, the graph is replayed, the result is read
+    from its static output."""
+
+    def __init__(self, args, cg_iters: int):
+        self.inputs = [a.clone() for a in args]
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):   # warm-up outside the capture
+            _cg(*self.inputs, cg_iters=1)
+        torch.cuda.current_stream().wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.output = _cg(*self.inputs, cg_iters=cg_iters)
+
+    def __call__(self, args):
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.output.clone()
+
+
+# Captured CG graphs by (device, shapes, iterations): a cache of compiled
+# work, like the kernels' loaded libraries; a few shape buckets a process.
+_CG_GRAPHS: Dict[tuple, _CapturedCG] = {}
+
+
+def _solve_cg(args, cg_iters: int, graphs: bool = True):
+    """``_cg`` on ``args``; on a CUDA device through the bucket's captured
+    graph (``graphs=False`` runs the eager loop, which the graph is held
+    to)."""
+    if args[0].device.type != "cuda" or not graphs:
+        return _cg(*args, cg_iters=cg_iters)
+    key = (args[0].device, cg_iters) + tuple(tuple(a.shape) for a in args)
+    cap = _CG_GRAPHS.get(key)
+    if cap is None:
+        cap = _CG_GRAPHS[key] = _CapturedCG(args, cg_iters)
+    return cap(args)
+
+
+def _pcg_step(g: PoseGraph, poses, lam, robust: bool, huber_delta: float,
+              switch_mask, phi, damping: float, cg_iters: int, graphs: bool):
+    """One damped Gauss-Newton step solved by PCG; returns the candidate
+    poses (the caller accepts or rejects them)."""
+    N, dev = poses.shape[0], poses.device
+    r, Ji, Jj = _edge_residual_jac(poses[g.edges_from], poses[g.edges_to], g.edges_meas)
+    w = (_huber_weights(r, g.edges_info, huber_delta) if robust
+         else torch.ones(r.shape[0], device=dev))
+    if switch_mask is not None:
+        w = w * _dcs_weights(r, g.edges_info, switch_mask, phi)
+    info_w = g.edges_info * (w * g.edge_valid)[:, None, None]
+    E = r.shape[0]
+    idx2 = torch.stack([g.edges_from, g.edges_to], dim=1).reshape(-1)
+    Jc = torch.cat([Ji, Jj], dim=-1)
+    b = torch.zeros((N, 6), dtype=torch.float32, device=dev)
+    b.index_add_(0, idx2, (Jc.transpose(-1, -2) @ (info_w @ r.unsqueeze(-1))).reshape(2 * E, 6))
+    # Jacobi preconditioner: diag(H), each edge's diag(Jc^T Omega Jc)
+    diag = torch.zeros((N, 6), dtype=torch.float32, device=dev)
+    diag.index_add_(0, idx2, (Jc * (info_w @ Jc)).sum(-2).reshape(2 * E, 6))
+    node_blocks = torch.zeros((N, 6, 6), dtype=torch.float32, device=dev)
+    if g.priors_idx.shape[0] > 0:
+        _, Hp, bp = _prior_blocks(g, poses)
+        b.index_add_(0, g.priors_idx, bp)
+        diag.index_add_(0, g.priors_idx, Hp.diagonal(dim1=-2, dim2=-1))
+        node_blocks.index_add_(0, g.priors_idx, Hp)
+    # gauge and invalid-node clamps, and LM damping lambda diag(H)
+    root = torch.nn.functional.one_hot(torch.tensor(g.root, device=dev), N).float()
+    fix = (root + (~g.node_valid).float()) * 1e8 + damping
+    damp6 = fix[:, None] + lam * torch.clamp_min(diag, 1e-8)
+    node_blocks = node_blocks + torch.diag_embed(damp6)
+    minv = 1.0 / (diag + damp6 + 1e-8)
+    dx = _solve_cg((Jc, info_w, idx2, node_blocks, minv, -b), cg_iters, graphs)
+    dx = torch.where(g.node_valid[:, None], dx, torch.zeros_like(dx))
+    nrm = torch.linalg.norm(dx, dim=-1, keepdim=True)
+    dx = dx * torch.clamp_max(1.0 / torch.clamp_min(nrm, 1e-9), 1.0)
+    return T.retract(poses, dx)
+
+
+def optimize_pcg(g: PoseGraph, iters: int = 15, cg_iters: int = 60, damping: float = 1e-4,
+                 robust: bool = False, huber_delta: float = 1.0,
+                 switch_mask: Optional[torch.Tensor] = None,
+                 dcs_phi: float = DCS_PHI_DEFAULT,
+                 graphs: bool = True) -> Tuple[PoseGraph, torch.Tensor]:
+    """Levenberg-Marquardt whose steps are solved by ``cg_iters`` iterations
+    of matrix-free Jacobi-preconditioned CG, for graphs too large for the
+    dense Cholesky. A step that raises the robust objective or is not
+    finite is rejected and lambda raised. On a CUDA device the CG loop
+    runs as a captured graph (``graphs=False``: eagerly). Returns (graph,
+    chi2)."""
+    dev = g.poses.device
+    poses = g.poses
+    lam = torch.tensor(damping, dtype=torch.float32, device=dev)
+    n_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    phi0 = _dcs_phi0(g, switch_mask, dcs_phi) if switch_mask is not None else None
+    cur = None
+    for _ in range(iters):
+        phi_k = (_dcs_phi_schedule(phi0, dcs_phi, n_acc, iters)
+                 if switch_mask is not None else None)
+        cand = _pcg_step(g, poses, lam, robust, huber_delta, switch_mask, phi_k, damping,
+                         cg_iters, graphs)
+        if cur is None or switch_mask is not None:
+            # without DCS the objective does not change between iterations
+            cur = _robust_cost(g, poses, robust, huber_delta, switch_mask, phi_k)
+        new = _robust_cost(g, cand, robust, huber_delta, switch_mask, phi_k)
+        ok = torch.isfinite(new) & (new <= cur)
+        poses = torch.where(ok, cand, poses)
+        cur = torch.where(ok, new, cur)
+        lam = torch.where(ok, torch.clamp_min(lam / 3.0, 1e-9), torch.clamp_max(lam * 10.0, 1e8))
+        n_acc = n_acc + ok.float()
+    out = g._replace(poses=poses)
+    return out, graph_chi2(out)
+
+
 def optimize(g: PoseGraph, iters: int = 20, robust: bool = False,
              dense_threshold: int = 400, switch_mask: Optional[torch.Tensor] = None,
              dcs_phi: float = DCS_PHI_DEFAULT):
     """Solver dispatch of Optimizer::create: the dense LM up to
-    ``dense_threshold`` nodes."""
+    ``dense_threshold`` nodes, PCG past it. Jacobi-PCG moves information
+    about one graph hop a CG iteration, so the inner solve gets about N
+    iterations (at least 60, at most 1024), as in the twin."""
     N = g.poses.shape[0]
-    if N > dense_threshold:
-        raise NotImplementedError(
-            f"a {N}-node graph needs optimize_pcg (the matrix-free PCG solver), "
-            f"which is not ported yet; the dense solver takes up to {dense_threshold}")
-    return optimize_dense(g, iters=iters, robust=robust, switch_mask=switch_mask,
-                          dcs_phi=dcs_phi)
+    if N <= dense_threshold:
+        return optimize_dense(g, iters=iters, robust=robust, switch_mask=switch_mask,
+                              dcs_phi=dcs_phi)
+    return optimize_pcg(g, iters=iters, cg_iters=int(min(max(60, N), 1024)), robust=robust,
+                        switch_mask=switch_mask, dcs_phi=dcs_phi)
+
+
+def optimize_poses_dict(poses, links, root_id=None, iters: int = 12, robust: bool = False,
+                        device=None) -> Dict[int, np.ndarray]:
+    """Offline solve over ``{id: (3,4) pose}`` and links (``from_id``,
+    ``to_id``, ``type``, ``transform``, ``information``) on ``device``
+    (None = the CUDA card): the tool-side entry of the reference's
+    ``Optimizer::optimize`` after ``getConnectedGraph``. A landmark link
+    (negative ``to_id``) places its landmark at ``from * t`` when absent;
+    only the connected component of ``root_id`` (default: the smallest
+    id) is solved, everything else is returned unchanged. Nodes and edges
+    are padded to powers of two."""
+    from rtabmap_tpu_torch.memory.memory import LINK_LANDMARK, LINK_POSE_PRIOR
+
+    poses = dict(poses)
+    edges, seen = [], set()
+    for lk in links:
+        if lk.type == LINK_POSE_PRIOR or lk.transform is None:
+            continue
+        key = (min(lk.from_id, lk.to_id), max(lk.from_id, lk.to_id), lk.type)
+        if key in seen or lk.from_id == lk.to_id:
+            continue
+        seen.add(key)
+        if lk.type == LINK_LANDMARK and lk.to_id not in poses and lk.from_id in poses:
+            poses[lk.to_id] = T.np_compose(np.asarray(poses[lk.from_id], np.float32),
+                                           np.asarray(lk.transform, np.float32))
+        if lk.from_id in poses and lk.to_id in poses:
+            edges.append(lk)
+    if not poses:
+        return {}
+    adj: Dict[int, list] = {}
+    for lk in edges:
+        adj.setdefault(lk.from_id, []).append(lk.to_id)
+        adj.setdefault(lk.to_id, []).append(lk.from_id)
+    root = root_id if root_id in poses else min(poses)
+    comp, stack = {root}, [root]
+    while stack:
+        for nb in adj.get(stack.pop(), []):
+            if nb not in comp:
+                comp.add(nb)
+                stack.append(nb)
+    ids = sorted(i for i in comp if i >= 0) + sorted(i for i in comp if i < 0)
+    if len(ids) < 2:
+        return poses
+    index = {i: k for k, i in enumerate(ids)}
+    edges = [lk for lk in edges if lk.from_id in comp and lk.to_id in comp]
+    if not edges:
+        return poses
+    N, E = len(ids), len(edges)
+    Np, Ep = 1 << max(N - 1, 1).bit_length(), 1 << max(E - 1, 1).bit_length()
+    P = np.tile(np.eye(3, 4, dtype=np.float32), (Np, 1, 1))
+    for i in ids:
+        P[index[i]] = np.asarray(poses[i], np.float32)
+    ef, et = np.zeros((Ep,), np.int64), np.zeros((Ep,), np.int64)
+    meas = np.tile(np.eye(3, 4, dtype=np.float32), (Ep, 1, 1))
+    info = np.tile(np.eye(6, dtype=np.float32)[None], (Ep, 1, 1))
+    for k, lk in enumerate(edges):
+        ef[k], et[k] = index[lk.from_id], index[lk.to_id]
+        meas[k] = np.asarray(lk.transform, np.float32)
+        if lk.information is not None:
+            info[k] = np.asarray(lk.information, np.float32)
+    g = make_graph(P, ef, et, meas, info, node_valid=np.arange(Np) < N,
+                   edge_valid=np.arange(Ep) < E, root=index[root], device=device)
+    out, _chi2 = optimize(g, iters=iters, robust=robust)
+    solved = out.poses.cpu().numpy()
+    result = dict(poses)
+    for i in ids:
+        result[i] = solved[index[i]]
+    return result

@@ -4,8 +4,11 @@ Port of ``run_dataset`` from ``rtabmap_tpu/tools/dataset_runner.py`` (the
 reference's RgbdDataset main loop: odometry, covariance >= 9999 starts a
 new map, the end-of-run ``graph::calcRMSE``) for RGB-D frames: each
 frame's features go through ``OdometryF2M.process`` and
-``Rtabmap.process``. Stereo frames, IMU samples, learned feature
-extraction, the map store, the KITTI error metrics and profile traces
+``Rtabmap.process``. With a map store (``db``) each frame's raw image and
+depth go to ``process`` for the store. ``slam`` continues an engine the
+caller made (e.g. ``Rtabmap.load`` of a store, for a resumed or a
+localization session) with a new odometry. Stereo frames, IMU samples,
+learned feature extraction, the KITTI error metrics and profile traces
 raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
@@ -27,13 +30,15 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
                 max_kp: int = 512, node_capacity: int = 1024, db=None,
                 verbose: bool = True, max_frames: int = 0, kitti_errors: bool = False,
                 imu_method: str = "madgwick", device: DeviceLike = None,
-                seed: int = 0) -> Dict:
+                seed: int = 0, slam=None) -> Dict:
     """Run odometry + SLAM over ``frames`` (``datasets.readers.Frame``
     records with depth) on ``device`` (None = the CUDA card); ``seed``
-    shifts the RANSAC generators of the odometry (seed) and of the engine
-    (42 + seed). Returns the metrics, the trajectories and per-frame host
-    times in ms: ``extract_ms``, ``odom_ms`` (ends in the odometry's fetch
-    of the pose) and ``process_ms`` (ends in a device synchronize)."""
+    shifts the RANSAC generators of the odometry (seed) and of a new
+    engine (42 + seed); ``slam`` is an engine to continue instead (its
+    own ``db`` is used). Returns the metrics, the trajectories and
+    per-frame host times in ms: ``extract_ms``, ``odom_ms`` (ends in the
+    odometry's fetch of the pose) and ``process_ms`` (ends in a device
+    synchronize)."""
     from rtabmap_tpu_torch.core.frame import FeatureExtractor
     from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
     from rtabmap_tpu_torch.geometry import transform as T
@@ -51,8 +56,10 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
         raise _later("Tpu/ProfileDir traces",
                      "a later slice; use tools/rgbd_laps.py --profile")
     odom = OdometryF2M(camera, p, seed=seed, device=dev)
-    slam = Rtabmap(camera, p, db=db, node_capacity=node_capacity,
-                   words_per_frame=max_kp, seed=42 + seed, device=dev)
+    if slam is None:
+        slam = Rtabmap(camera, p, db=db, node_capacity=node_capacity,
+                       words_per_frame=max_kp, seed=42 + seed, device=dev)
+    keep_raw = slam.memory.db is not None
     use_odom_features = bool(p["Mem/UseOdomFeatures"])
     kp_budget = int(p["Kp/MaxFeatures"])
     if kp_budget <= 0 or kp_budget > max_kp:
@@ -110,6 +117,7 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
             slam_feat = feat._replace(valid=feat.valid & keep, valid3d=feat.valid3d & keep)
         _t = time.perf_counter()
         st = slam.process(slam_feat, pose, cov, stamp=fr.stamp, gt_pose=fr.gt_pose,
+                          raw=(fr.gray, fr.depth) if keep_raw else None,
                           extra_stats={"Odometry/TotalTime/ms": odom_ms, **capture_stats})
         sync()
         times["process_ms"].append((time.perf_counter() - _t) * 1000.0)

@@ -21,6 +21,7 @@ from rtabmap_tpu_torch.core.frame import FeatureExtractor, FrameFeatures
 from rtabmap_tpu_torch.datasets.synthetic import loop_trajectory, render
 from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
 from rtabmap_tpu_torch.geometry import camera as C
+from rtabmap_tpu_torch.geometry import transform as T
 from rtabmap_tpu_torch.memory import memory as MEM
 from rtabmap_tpu_torch.odometry import f2m as F
 from rtabmap_tpu_torch.ops import matching as M
@@ -125,3 +126,51 @@ def test_rgbd_engine_ticks_on_the_card_equal_the_cpu():
         closures += int(a.loop_closure_id > 0)
         proximity += int(a.get("Proximity/Space links added/"))
     assert closures >= 1 and proximity >= 1
+
+
+def _planar_ring(n: int, seed: int = 0):
+    """A noisy planar ring of ``n`` poses (radius 10 m) with odometry edges
+    and a closure every 20 nodes to the node opposite: (init, ef, et, meas,
+    info) as numpy, the init by dead reckoning."""
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(n) / n
+    gt = np.zeros((n, 3, 4), np.float32)
+    gt[:, 0, 0] = gt[:, 1, 1] = np.cos(a + np.pi / 2)
+    gt[:, 0, 1], gt[:, 1, 0] = -np.sin(a + np.pi / 2), np.sin(a + np.pi / 2)
+    gt[:, 2, 2] = 1.0
+    gt[:, 0, 3], gt[:, 1, 3] = 10 * np.cos(a), 10 * np.sin(a)
+    ef = np.concatenate([np.arange(n - 1), np.arange(0, n, 20)])
+    et = np.concatenate([np.arange(1, n), (np.arange(0, n, 20) + n // 2) % n])
+    meas = T.relative(torch.from_numpy(gt[ef]), torch.from_numpy(gt[et])).numpy()
+    meas[:, :2, 3] += rng.normal(0, 0.02, (len(ef), 2)).astype(np.float32)
+    init = [torch.from_numpy(gt[0])]
+    for k in range(n - 1):
+        init.append(T.compose(init[-1], torch.from_numpy(meas[k])))
+    info = np.tile(np.eye(6, dtype=np.float32) * 100.0, (len(ef), 1, 1))
+    return torch.stack(init).numpy(), ef, et, meas, info
+
+
+@pytest.mark.cuda
+def test_optimize_pcg_on_the_card_equals_the_cpu():
+    """A 480-node ring padded to the 512-node bucket, six LM steps of 512 CG
+    iterations: the captured CUDA graph, the eager loop on the card and
+    the CPU run (the one tests/test_torch_pose_graph.py holds to the JAX
+    package) agree within 1e-3 m, chi2 within 1e-3 relative (float32
+    sums in another order, atomics in ``index_add_``)."""
+    from rtabmap_tpu_torch.optim import pose_graph as PG
+
+    dev = _card()
+    init, ef, et, meas, info = _planar_ring(480)
+    N, E = 512, 512
+    pad = lambda a, n: np.concatenate([a, np.tile(np.eye(3, 4, dtype=np.float32), (n, 1, 1))])  # noqa: E731
+    args = (pad(init, N - 480), np.concatenate([ef, np.zeros(E - len(ef), np.int64)]),
+            np.concatenate([et, np.zeros(E - len(et), np.int64)]), pad(meas, E - len(ef)),
+            np.concatenate([info, np.tile(np.eye(6, dtype=np.float32), (E - len(ef), 1, 1))]))
+    kw = dict(node_valid=np.arange(N) < 480, edge_valid=np.arange(E) < len(ef))
+    cpu, cc = PG.optimize_pcg(PG.make_graph(*args, device="cpu", **kw), iters=6, cg_iters=512)
+    g = PG.make_graph(*args, device=dev, **kw)
+    for graphs in (True, False):
+        out, c = PG.optimize_pcg(g, iters=6, cg_iters=512, graphs=graphs)
+        np.testing.assert_allclose(out.poses.cpu().numpy(), cpu.poses.numpy(), atol=1e-3)
+        assert abs(float(c) - float(cc)) <= 1e-3 * float(cc)
+    assert float(cc) < 0.1 * float(PG.graph_chi2(PG.make_graph(*args, device="cpu", **kw)))

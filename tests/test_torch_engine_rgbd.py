@@ -108,8 +108,12 @@ def test_default_parameters_construct_and_refuse_what_is_not_ported():
     assert slam.rgbd_mode and slam.incremental_optimization
     with pytest.raises(NotImplementedError):
         Rtabmap(cam, Parameters({"VhEp/Enabled": True}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Rtabmap(cam, Parameters(), db=object(), device="cpu")
+    from rtabmap_tpu_torch.memory.db import Database
+
+    db = Database(":memory:", async_writes=False)    # the map store is ported
+    assert Rtabmap(cam, Parameters({"Tpu/VocabularyCapacity": 1024}), db=db,
+                   node_capacity=16, words_per_frame=8, device="cpu").memory.db is db
+    db.close()
     with pytest.raises(NotImplementedError):
         Rtabmap(cam, Parameters({"Rtabmap/CreateIntermediateNodes": True}), device="cpu")
     with pytest.raises(NotImplementedError, match="scan"):

@@ -62,8 +62,19 @@ def test_entry_points_without_a_card_raise():
     from rtabmap_tpu_torch.odometry.f2m import OdometryF2M
     from rtabmap_tpu_torch.tools.dataset_runner import run_dataset
 
+    from rtabmap_tpu_torch.memory.db import Database
+    from rtabmap_tpu_torch.memory.memory import LINK_NEIGHBOR, Link
+    from rtabmap_tpu_torch.optim.pose_graph import optimize_poses_dict
+    from rtabmap_tpu_torch.tools.rgbd_sessions import iter_sessions
+
     rgbd_p = Parameters({"Tpu/VocabularyCapacity": 1024})
+    db = Database(":memory:", async_writes=False)
+    eye = np.eye(3, 4, dtype=np.float32)
     for make in (lambda: Rtabmap(cam, p, node_capacity=16, words_per_frame=8),
+                 lambda: Rtabmap.load(db, cam, rgbd_p, node_capacity=16, words_per_frame=8),
+                 lambda: next(iter_sessions(":memory:")),
+                 lambda: optimize_poses_dict({1: eye, 2: eye},
+                                             [Link(1, 2, LINK_NEIGHBOR, eye, np.eye(6))]),
                  lambda: Rtabmap(cam, rgbd_p, node_capacity=16, words_per_frame=8),
                  lambda: OdometryF2M(cam),
                  lambda: create_odometry(cam, rgbd_p),
@@ -76,6 +87,7 @@ def test_entry_points_without_a_card_raise():
                  lambda: VoxelOccupancyMap()):
         with pytest.raises(RuntimeError):
             make()
+    db.close()
 
 
 def test_unported_paths_raise_not_implemented():
@@ -88,7 +100,7 @@ def test_unported_paths_raise_not_implemented():
     Rtabmap(cam, Parameters({"Tpu/VocabularyCapacity": 1024}), node_capacity=16,
             words_per_frame=8, device="cpu")          # the RGB-D tick is ported
     with pytest.raises(NotImplementedError):
-        Rtabmap(cam, Parameters({"RGBD/Enabled": False}), db=object(), device="cpu")
+        Rtabmap(cam, Parameters({"RGBD/Enabled": False}), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         Rtabmap(cam, Parameters({"VhEp/Enabled": True}), device="cpu")
     for strategy in (2, 11):   # FAST/BRIEF, SuperPoint
