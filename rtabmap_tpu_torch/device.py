@@ -3,11 +3,13 @@
 Every entry point takes ``device``: ``None`` means the CUDA card and raises
 when there is none — the port never moves quietly to the CPU. Tests pass
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels.
+``to_numpy`` brings a tensor or an array to the host.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -26,3 +28,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
     return dev
+
+
+def to_numpy(x) -> Optional[np.ndarray]:
+    """A tensor on any device, or an array, as a host numpy array; None stays None."""
+    if x is None:
+        return None
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -16,7 +16,22 @@ Port of ``rtabmap_tpu/engine/rtabmap.py`` over two configurations:
   accept), graph optimization (the affected subgraph with
   ``Tpu/IncrementalOptimization``, else the connected component, dense
   LM) with the ``RGBD/OptimizeMaxError`` reject, graph repair after
-  repeated rejections, and the pose statistics.
+  repeated rejections, and the pose statistics;
+- with laser scans (``process(scan=LaserScan)``, the RGB-D + LiDAR robot):
+  neighbour-link refining (``RGBD/NeighborLinkRefining``: each odometry
+  link polished by scan ICP against the previous node's scan), the
+  scan-ICP proximity fallback against the nearby nodes' scans assembled
+  in the nearest node's frame when no visual proximity link was found,
+  and in localization mode ``RGBD/ProximityGlobalScanMap``: the current
+  scan registered against the whole map's scans. All three go through
+  ``ops/icp.register_scans`` and so the K2 kernel. Scans are read in the
+  node frame (``xyz()``; ``local_transform`` is not applied, as in the
+  JAX twin);
+- epipolar hypothesis verification (``VhEp/Enabled``: the shared unique
+  words' fundamental-matrix RANSAC, gated by the twin's null model) and
+  intermediate nodes (``Rtabmap/CreateIntermediateNodes``: a frame the
+  ``Rtabmap/DetectionRate`` gate skips becomes a weight -1 node with no
+  features, chained by odometry).
 
 With a map store (``db``, a ``memory/db.Database``) every tick saves its
 statistics row and, with ``Mem/BinDataKept``, the raw frame; ``close()``
@@ -30,12 +45,10 @@ against the rolling odometry cache (``_localize_with_odom_cache``), and
 the loop threshold drops to ``RGBD/AggressiveLoopThr`` until a closure is
 in the cache. ``set_initial_pose`` seeds the map correction.
 
-Raised as not yet ported, naming the slice that brings them: epipolar
-hypothesis verification (``VhEp/Enabled``), multi-device meshes, laser
-scans (and with them neighbour-link refining, the scan-ICP proximity
-fallback and global scan-map localization), landmarks, learned-descriptor
-inputs, GPS priors and intermediate nodes. Not there yet: the path
-planner and the maintenance API.
+Raised as not yet ported, naming the slice that brings them: multi-device
+meshes, landmarks, learned-descriptor inputs (and with them the learned
+matcher of the epipolar check, ``Vis/CorNNType`` 6) and GPS priors. Not
+there yet: the path planner and the maintenance API.
 """
 from __future__ import annotations
 
@@ -49,7 +62,7 @@ import torch
 
 from rtabmap_tpu_torch.bayes import filter as BF
 from rtabmap_tpu_torch.core.frame import FrameFeatures
-from rtabmap_tpu_torch.device import DeviceLike, resolve_device
+from rtabmap_tpu_torch.device import DeviceLike, resolve_device, to_numpy
 from rtabmap_tpu_torch.geometry import camera as C
 from rtabmap_tpu_torch.geometry import transform as T
 from rtabmap_tpu_torch.memory.memory import (
@@ -104,13 +117,6 @@ def _not_ported(what: str, slice_: str):
     return NotImplementedError(f"{what} is not ported yet; it comes with {slice_}")
 
 
-def _host_array(x) -> Optional[np.ndarray]:
-    """A raw image or depth map (tensor on any device, or array) on the host."""
-    if x is None:
-        return None
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def _pad_pow2(n: int, floor: int) -> int:
     return max(1 << max(n - 1, 1).bit_length(), floor)
 
@@ -124,12 +130,6 @@ class Rtabmap:
         p = params or Parameters()
         if mesh is not None:
             raise _not_ported("a multi-device mesh", "the multi-chip slice")
-        if bool(p["VhEp/Enabled"]):
-            raise _not_ported("epipolar hypothesis verification (VhEp/Enabled)",
-                              "the ops/epipolar.py slice")
-        if bool(p["Rtabmap/CreateIntermediateNodes"]):
-            raise _not_ported("intermediate nodes (Rtabmap/CreateIntermediateNodes)",
-                              "a later slice")
         self.device = resolve_device(device)
         self.params = p
         self.cam = cam
@@ -142,6 +142,10 @@ class Rtabmap:
             device=self.device)
         self.loop_thr = float(p["Rtabmap/LoopThr"])
         self.loop_ratio = float(p["Rtabmap/LoopRatio"])
+        # epipolar hypothesis verification (VhEp/*, EpipolarGeometry::check)
+        self.vh_ep_enabled = bool(p["VhEp/Enabled"])
+        self.vh_ep_match_count_min = int(p["VhEp/MatchCountMin"])
+        self.vh_ep_ransac_param1 = float(p["VhEp/RansacParam1"])
         self.max_error = float(p["RGBD/OptimizeMaxError"])
         self.local_radius = float(p["RGBD/LocalRadius"])
         self.prox_max_paths = int(p["RGBD/ProximityMaxPaths"])
@@ -150,6 +154,10 @@ class Rtabmap:
         self.prox_odom_guess = bool(p["RGBD/ProximityOdomGuess"])
         self.max_loop_closure_distance = float(p["RGBD/MaxLoopClosureDistance"])
         self.proximity_by_time = bool(p["RGBD/ProximityByTime"])
+        self.prox_merged_scan_cov_factor = float(p["RGBD/ProximityMergedScanCovFactor"])
+        self.prox_global_scan_map = bool(p["RGBD/ProximityGlobalScanMap"])
+        self._global_scan_cache = None  # (scan nodes when built, points, mask)
+        self.neighbor_link_refining = bool(p["RGBD/NeighborLinkRefining"])
         self.time_thr = float(p["Rtabmap/TimeThr"])        # ms, 0 = off
         self.memory_thr = int(p["Rtabmap/MemoryThr"])      # nodes, 0 = off
         self.min_inliers = int(p["Vis/MinInliers"])
@@ -163,6 +171,7 @@ class Rtabmap:
         self._closures_since_full = 0
         self.rgbd_mode = bool(p["RGBD/Enabled"])
         self.detection_rate = float(p["Rtabmap/DetectionRate"])
+        self.create_intermediate_nodes = bool(p["Rtabmap/CreateIntermediateNodes"])
         self.linear_update = float(p["RGBD/LinearUpdate"])
         self.angular_update = float(p["RGBD/AngularUpdate"])
         self.linear_speed_update = float(p["RGBD/LinearSpeedUpdate"])
@@ -195,6 +204,10 @@ class Rtabmap:
         self._last_likelihood: Optional[np.ndarray] = None
         self._last_closest_node = None
         self._last_prox_path_stats = (0, 0)
+        self._last_prox_counts: Optional[Tuple[int, int]] = None  # (visual, scan)
+        self._last_scan_paths_checked = 0
+        # registrations against the global scan map (localization mode)
+        self.global_scan_calls = 0
         self._consecutive_rejections = 0
         # RANSAC draws of every registration the engine makes (a CPU
         # generator: the same samples on the CPU and on the card)
@@ -236,6 +249,9 @@ class Rtabmap:
                 mem.signatures[sid] = sig
         last_ids = sorted(i for i, s in mem.signatures.items() if s.map_id == last_map)
         budget = mem.node_capacity - mem.stm_size - 2
+        for sig in mem.signatures.values():
+            if sig.scan is not None:
+                sig.scan = sig.scan.to(slam.device)
         for sid in last_ids[-budget:]:
             sig = mem.signatures[sid]
             sig.in_ltm = False
@@ -290,8 +306,6 @@ class Rtabmap:
                 velocity=None, gps=None, landmarks=None, raw=None, descf=None,
                 extra_stats: Optional[Dict[str, float]] = None) -> Statistics:
         for what, value, slice_ in (
-                ("a laser scan", scan, "the engine's scan stages (neighbour-link "
-                 "refining, the scan-ICP proximity fallback; ROADMAP 'Next' c.)"),
                 ("landmarks", landmarks, "a later slice"),
                 ("learned float descriptors", descf, "the learned-model slice")):
             if value is not None:
@@ -307,6 +321,10 @@ class Rtabmap:
         # --- detection-rate gate
         if self.detection_rate > 0 and stamp > 0:
             if stamp - self._last_process_stamp < 1.0 / self.detection_rate - 1e-6:
+                # with Rtabmap/CreateIntermediateNodes the skipped frame
+                # stays in the odometry chain as a weight -1 node
+                if self.create_intermediate_nodes and self.rgbd_mode:
+                    self._add_intermediate_node(frame, odom_pose, cov, stamp, st)
                 st.add("Rtabmap/Skipped", 1)
                 return st
         self._last_process_stamp = stamp
@@ -335,6 +353,7 @@ class Rtabmap:
                 st.add(k, v)
             st.add("TimingMem/Pre update/ms", 0.0)
             st.add("TimingMem/Joining dictionary update/ms", 0.0)
+            sig.scan = None if scan is None else scan.to(self.device)
             sig.user_data = user_data
             sig.grid = grid
             if env_sensors:
@@ -353,14 +372,20 @@ class Rtabmap:
                 with st.time_stage("TimingMem/Compressing data/ms"):
                     self.memory.db.save_raw_frame(
                         sig.id, map_id=sig.map_id, stamp=stamp, pose=odom_pose,
-                        image=_host_array(raw[0]), depth=_host_array(raw[1]))
+                        image=to_numpy(raw[0]), depth=to_numpy(raw[1]))
             neighbor_link = None
             prev = self.memory.get(prev_id) if prev_id is not None else None
             if prev is not None and prev.map_id != sig.map_id:
                 prev = None  # never chain odometry across a session break
             if prev is not None:
                 t_ab = np.asarray(T.np_relative(prev.pose, odom_pose), np.float32)
-                neighbor_link = Link(prev_id, sig.id, LINK_NEIGHBOR, t_ab, info_from_cov(cov))
+                link_cov = cov
+                if (self.neighbor_link_refining and sig.scan is not None
+                        and prev.scan is not None):
+                    t_ab, link_cov = self._refine_neighbor_link(sig.scan, prev.scan, t_ab,
+                                                                cov, st)
+                neighbor_link = Link(prev_id, sig.id, LINK_NEIGHBOR, t_ab,
+                                     info_from_cov(link_cov))
             self.memory.add_to_stm(sig, neighbor_link)
 
         # --- C. metric gates: small displacement and too-fast movement
@@ -477,6 +502,9 @@ class Rtabmap:
         if hypothesis_id > 0 and hypothesis_value >= loop_thr:
             if len(wm_ids) <= 1:
                 log.debug("rejected hypothesis: single hypothesis")
+            elif (self.vh_ep_enabled
+                  and not self._verify_hypothesis_ep(sig, hypothesis_id, st)):
+                log.debug("rejected hypothesis: by epipolar geometry")
             elif (self.loop_ratio > 0 and
                   (self.last_hypothesis[1] == 0.0 or
                    hypothesis_value < self.loop_ratio * self.last_hypothesis[1])):
@@ -576,8 +604,10 @@ class Rtabmap:
                 n_paths, n_checked = self._last_prox_path_stats
                 st.add("Proximity/Space paths/", n_paths)
                 st.add("Proximity/Space visual paths checked/", n_checked)
-                st.add("Proximity/Space detections added visually/", len(prox_links))
-                st.add("Proximity/Space detections added icp multi/", 0)
+                n_vis, n_icp = (self._last_prox_counts if self._last_prox_counts is not None
+                                else (len(prox_links), 0))
+                st.add("Proximity/Space detections added visually/", n_vis)
+                st.add("Proximity/Space detections added icp multi/", n_icp)
                 if prox_links:
                     st.add("Proximity/Space last detection id/", prox_links[-1].from_id)
                 if self._last_closest_node is not None:
@@ -631,7 +661,7 @@ class Rtabmap:
         st.add("Memory/Short time memory inter size/",
                sum(1 for i in mem.stm if (s := mem.get(i)) is not None and s.weight < 0))
         st.add("Memory/Working memory inter size/", mem.n_inter_wm)
-        st.add("Proximity/Space scan paths checked/", 0)
+        st.add("Proximity/Space scan paths checked/", self._last_scan_paths_checked)
         if accepted_id > 0 or st.get("Loop/Localized/") > 0:
             # localization covariance summary (MapToBase lin var/std); the
             # appearance-only closure has no registration: zero variance
@@ -676,13 +706,144 @@ class Rtabmap:
             mem.db.save_statistics(sig.id, stamp, st.data)
         return st
 
+    def _add_intermediate_node(self, frame: FrameFeatures, odom_pose, cov, stamp: float,
+                               st: Statistics):
+        """A weight -1 node for a frame the detection rate skipped
+        (reference: Rtabmap/CreateIntermediateNodes): it keeps the
+        full-rate odometry chain in the graph with an empty feature set,
+        out of rehearsal and the hypotheses."""
+        mem = self.memory
+        prev_id = mem.stm[-1] if mem.stm else None
+        empty = FrameFeatures(*(torch.zeros_like(x) for x in frame))
+        sig = mem.create_signature(empty, odom_pose, stamp, weight=-1)
+        link = None
+        prev = mem.get(prev_id) if prev_id is not None else None
+        if prev is not None and prev.map_id == sig.map_id:
+            t_ab = np.asarray(T.np_relative(prev.pose, odom_pose), np.float32)
+            link = Link(prev_id, sig.id, LINK_NEIGHBOR, t_ab, info_from_cov(np.asarray(cov)))
+        mem.add_to_stm(sig, link)
+        self.optimized_poses[sig.id] = np.asarray(
+            T.np_compose(self.map_correction, odom_pose), np.float32)
+        st.ref_id = sig.id
+        st.add("Memory/Short time memory inter size/",
+               sum(1 for i in mem.stm if (s := mem.get(i)) is not None and s.weight < 0))
+        st.add("Memory/Working memory inter size/", mem.n_inter_wm)
+
+    def _refine_neighbor_link(self, scan, prev_scan, t_ab: np.ndarray, cov,
+                              st: Statistics):
+        """Neighbour-link refining (reference: RGBD/NeighborLinkRefining):
+        the odometry link polished by scan ICP of this node's scan against
+        the previous node's. One fetch brings the acceptance, the
+        statistics and the refined link. Returns (link transform, link
+        covariance)."""
+        from rtabmap_tpu_torch.ops.icp import register_scans
+
+        dev = self.device
+        prev_scan = prev_scan.to(dev)
+        with st.time_stage("Timing/Neighbor link refining/ms"):
+            res, icp_cov = register_scans(
+                scan.xyz(), scan.valid, prev_scan.xyz(), prev_scan.valid,
+                guess=torch.as_tensor(t_ab, device=dev))
+            # the scan's structural complexity (smallest over largest
+            # eigenvalue of its points' covariance), summed in float64
+            pv = scan.xyz().double()
+            w = scan.valid.double()
+            n_pts = w.sum()
+            mu = (pv * w[:, None]).sum(0) / torch.clamp_min(n_pts, 1.0)
+            X = (pv - mu) * w[:, None]
+            scatter = X.T @ X
+            host = torch.cat([
+                torch.stack([res.valid.double(), res.correspondence_ratio.double(), n_pts]),
+                scatter.reshape(-1), res.transform.double().reshape(-1),
+                icp_cov.double().reshape(-1)]).cpu().numpy()
+        accepted, ratio, n_pts = bool(host[0]), float(host[1]), float(host[2])
+        st.add("NeighborLinkRefining/Accepted/", float(accepted))
+        st.add("NeighborLinkRefining/ICP inliers ratio/", ratio)
+        st.add("NeighborLinkRefining/Pts/", n_pts)
+        st.add("NeighborLinkRefining/Inliers/", ratio * n_pts)
+        if n_pts >= 10:
+            w_eig = np.linalg.eigvalsh(host[3:12].reshape(3, 3))
+            st.add("NeighborLinkRefining/ICP complexity/",
+                   float(w_eig[0] / max(w_eig[-1], 1e-12)))
+        else:
+            st.add("NeighborLinkRefining/ICP complexity/", 0.0)
+        if not accepted:
+            return t_ab, cov
+        # the refined link's deviation from the raw odometry
+        t_ref = host[12:24].reshape(3, 4).astype(np.float32)
+        link_cov = host[24:60].reshape(6, 6).astype(np.float32)
+        dev_t = T.np_relative(np.asarray(t_ab, np.float32), t_ref)
+        st.add("NeighborLinkRefining/ICP translation/m", float(T.np_translation_norm(dev_t)))
+        st.add("NeighborLinkRefining/ICP rotation/rad", float(T.np_rotation_angle(dev_t)))
+        st.add("NeighborLinkRefining/Variance/", float(np.max(np.diagonal(link_cov))))
+        st.add("Odometry/Refined by scan/", 1)
+        return t_ref, link_cov
+
+    def _verify_hypothesis_ep(self, sig: Signature, hyp_id: int, st: Statistics) -> bool:
+        """Epipolar verification of the loop hypothesis (reference:
+        EpipolarGeometry::check): the unique shared words' correspondences,
+        fundamental-matrix RANSAC, and the JAX twin's null-model gate in
+        place of the reference's ``inliers >= VhEp/MatchCountMin``, which a
+        RANSAC model fitting its own 8 samples always passes."""
+        from rtabmap_tpu_torch.memory.memory import _shared_word_rows
+        from rtabmap_tpu_torch.ops.epipolar import check_hypothesis
+
+        with st.time_stage("Timing/Hypotheses validation/ms"):
+            old = self.memory.get(hyp_id)
+            if old is None or old.uv is None or sig.uv is None:
+                return False
+            if self.memory.cor_nn_type == 6:
+                raise _not_ported("the learned matcher's epipolar correspondences "
+                                  "(Vis/CorNNType=6 with VhEp/Enabled)",
+                                  "the learned-model slice")
+            ia, ib = _shared_word_rows(old.word_ids, sig.word_ids)
+            st.add("Loop/Epipolar pairs/", len(ia))
+            if len(ia) < self.vh_ep_match_count_min:
+                return False
+            # padded to the per-frame K, as the twin pads for one shape
+            K = self.memory.K
+            uv_a = np.zeros((K, 2), np.float32)
+            uv_b = np.zeros((K, 2), np.float32)
+            valid = np.zeros((K,), bool)
+            n = min(len(ia), K)
+            uv_a[:n] = old.uv[ia[:n]]
+            uv_b[:n] = sig.uv[ib[:n]]
+            valid[:n] = True
+            dev = self.device
+            _ok, _F, inl = check_hypothesis(
+                torch.as_tensor(uv_a, device=dev), torch.as_tensor(uv_b, device=dev),
+                torch.as_tensor(valid, device=dev), self.generator,
+                min_pairs=self.vh_ep_match_count_min,
+                threshold_px=self.vh_ep_ransac_param1, inlier_ratio=0.0)
+            inliers = int(inl.sum())
+            st.add("Loop/Epipolar inliers/", inliers)
+            # a random point lies within RansacParam1 px of an epipolar line
+            # with p ~ 2 thr diag / area; the best of the iterations lifts
+            # the chance count to ~ mu + 3 sqrt(mu) + log(iters): clear the
+            # 8 samples and that tail, and the reference's minimum
+            p_chance = (2.0 * self.vh_ep_ransac_param1
+                        * float(np.hypot(self.cam.width, self.cam.height))
+                        / (float(self.cam.width) * float(self.cam.height)))
+            mu = n * p_chance
+            null_gate = int(np.ceil(8 + mu + 3.0 * np.sqrt(mu) + 5.0))
+            return inliers >= max(self.vh_ep_match_count_min, null_gate)
+
     def _localize(self, st: Statistics, sig: Signature, odom_pose, links_added: List[Link],
                   accepted_id: int) -> int:
         """Localization mode's stage I: the first link added to this frame
         moves the map correction, checked against the odometry cache when
         it holds more than this frame; a link the cache contradicts is
-        removed. Returns the accepted hypothesis id (0 once rejected)."""
+        removed. A frame with no link, with RGBD/ProximityGlobalScanMap,
+        registers its scan against the whole map's scans instead. Returns
+        the accepted hypothesis id (0 once rejected)."""
         loc_link = links_added[0] if links_added else None
+        if loc_link is None and self.prox_global_scan_map and sig.scan is not None:
+            corrected = self._localize_global_scan(sig, odom_pose)
+            if corrected is not None:
+                self.map_correction = np.asarray(T.np_compose(
+                    corrected, T.np_inverse(odom_pose)), np.float32)
+                st.add("Loop/Localized/", 1)
+                st.add("Proximity/Space detections added icp global/", 1)
         anchor = (self.optimized_poses.get(loc_link.from_id)
                   if loc_link is not None and loc_link.to_id == sig.id else None)
         if anchor is not None:
@@ -955,9 +1116,9 @@ class Rtabmap:
             handles = mem.compute_transform_batch_async(
                 pair_ids, sig.id, self.cam, self.generator, pair_guesses,
                 min_inliers=self.min_inliers, guess_window=self.prox_odom_guess)
-        return {"pair_ids": pair_ids, "handles": handles, "paths": paths,
-                "checked": len(pair_ids), "filtering_radius": filtering_radius,
-                "t_vis": _t_vis, "sig_id": sig.id}
+        return {"pair_ids": pair_ids, "handles": handles, "paths": paths, "cands": cands,
+                "cur_pose": cur_pose, "checked": len(pair_ids),
+                "filtering_radius": filtering_radius, "t_vis": _t_vis, "sig_id": sig.id}
 
     def _proximity_collect(self, sig: Signature, ctx,
                            st: Optional[Statistics] = None) -> List[Link]:
@@ -981,7 +1142,90 @@ class Rtabmap:
         if st is not None:
             st.add("Timing/Proximity by space visual/ms",
                    (time.perf_counter() - ctx["t_vis"]) * 1000.0)
+        # scan ICP against the nearby nodes' scans assembled in the nearest
+        # one's frame (reference: Memory::computeIcpTransformMulti), when no
+        # visual link was found and this node carries a scan
+        self._last_prox_counts = (len(out), 0)
+        if not out and sig.scan is not None and ctx["cands"]:
+            scan_ids = [i for _, i in ctx["cands"][: self.prox_max_paths]
+                        if mem.get(i).scan is not None]
+            if scan_ids:
+                out = self._proximity_scan_multi(sig, scan_ids, ctx["cur_pose"])
+                self._last_prox_counts = (0, len(out))
         return out
+
+    def _scan_slab(self, ids: List[int], poses: List[torch.Tensor]):
+        """The scans of nodes ``ids`` carried by ``poses`` into one frame and
+        concatenated in that order, padded with invalid rows to a power of
+        two (the JAX twin's order and padding, which decide the points the
+        voxel hash keeps) -> (points (N,3), mask (N,))."""
+        pts, valid = [], []
+        for i, P in zip(ids, poses):
+            s = self.memory.get(i).scan.to(self.device)
+            pts.append(T.apply(P[None], s.xyz()[None])[0])
+            valid.append(s.valid)
+        pts, valid = torch.cat(pts), torch.cat(valid)
+        pad = (1 << max(pts.shape[0] - 1, 1).bit_length()) - pts.shape[0]
+        return (torch.nn.functional.pad(pts, (0, 0, 0, pad)),
+                torch.nn.functional.pad(valid, (0, pad)))
+
+    def _proximity_scan_multi(self, sig: Signature, scan_ids: List[int],
+                              cur_pose) -> List[Link]:
+        """Register the current scan against the nearby nodes' scans
+        assembled in the nearest node's frame; one closure link at most."""
+        from rtabmap_tpu_torch.ops.icp import register_scans
+
+        dev = self.device
+        self._last_scan_paths_checked = len(scan_ids)
+        anchor = scan_ids[0]
+        anchor_pose = torch.as_tensor(np.asarray(self.optimized_poses[anchor]), device=dev)
+        A_inv = T.inverse(anchor_pose)
+        pts, valid = self._scan_slab(scan_ids, [
+            T.compose(A_inv, torch.as_tensor(np.asarray(self.optimized_poses[i]), device=dev))
+            for i in scan_ids])
+        guess = T.relative(anchor_pose, torch.as_tensor(np.asarray(cur_pose), device=dev))
+        res, icp_cov = register_scans(sig.scan.xyz(), sig.scan.valid, pts, valid, guess=guess)
+        host = torch.cat([res.valid.float()[None], res.transform.reshape(-1),
+                          icp_cov.reshape(-1)]).cpu().numpy()
+        if not bool(host[0]):
+            return []
+        cov = host[13:49].reshape(6, 6) * self.prox_merged_scan_cov_factor
+        lk = Link(anchor, sig.id, LINK_LOCAL_SPACE_CLOSURE, host[1:13].reshape(3, 4).copy(),
+                  info_from_cov(cov))
+        self.memory.add_link(lk)
+        return [lk]
+
+    def _localize_global_scan(self, sig: Signature, odom_pose) -> Optional[np.ndarray]:
+        """Register the current scan against the whole map's scans
+        (reference: RGBD/ProximityGlobalScanMap), assembled in the map frame
+        and voxel-filtered once per count of scan nodes (the twin's cache).
+        Returns the corrected map pose of the current node, or None."""
+        from rtabmap_tpu_torch.ops.cloud import voxel_filter
+        from rtabmap_tpu_torch.ops.icp import register_scans
+
+        mem, dev = self.memory, self.device
+        scan_nodes = [i for i in list(mem.wm) + list(mem.stm)
+                      if i != sig.id and (s := mem.get(i)) is not None
+                      and s.scan is not None and i in self.optimized_poses]
+        if not scan_nodes:
+            return None
+        if (self._global_scan_cache is None
+                or self._global_scan_cache[0] != len(scan_nodes)):
+            pts, valid = self._scan_slab(scan_nodes, [
+                torch.as_tensor(np.asarray(self.optimized_poses[i]), device=dev)
+                for i in scan_nodes])
+            self._global_scan_cache = (len(scan_nodes), pts, voxel_filter(pts, valid, 0.05))
+        _, map_pts, map_valid = self._global_scan_cache
+        guess = T.compose(torch.tensor(np.asarray(self.map_correction), device=dev),
+                          torch.tensor(np.asarray(odom_pose), device=dev))
+        self.global_scan_calls += 1
+        res, _cov = register_scans(sig.scan.xyz(), sig.scan.valid, map_pts, map_valid,
+                                   guess=guess, voxel=0.0)
+        host = torch.cat([res.valid.float()[None],
+                          T.orthonormalize(res.transform).reshape(-1)]).cpu().numpy()
+        if not bool(host[0]):
+            return None
+        return host[1:13].reshape(3, 4).copy()
 
     # ------------------------------------------------------------ optimization
     def _build_graph(self):

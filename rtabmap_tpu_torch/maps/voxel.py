@@ -5,7 +5,10 @@ fixed-capacity device slab of 8x8x8 log-odds bricks with a host brick
 table. Ray samples are computed on the device; collapsing duplicate
 (voxel, kind) samples with occupied-endpoint priority and the brick table
 stay on the host; the log-odds update is one scatter-add into the slab
-on the device, done in place. The elevation map comes in a later slice.
+on the device, done in place.
+
+``ElevationMap`` (the elevation ``GridMap`` role): per-cell maximum and
+mean height of the assembled node clouds, one scatter each on the device.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from rtabmap_tpu_torch.device import DeviceLike, resolve_device
+from rtabmap_tpu_torch.device import DeviceLike, resolve_device, to_numpy
 from rtabmap_tpu_torch.geometry import transform as T
 
 BLOCK = 8
@@ -125,7 +128,7 @@ class VoxelOccupancyMap:
         """Integrate one node's cloud (sensor-frame points + node pose).
         Re-updating an existing node re-assembles the whole map."""
         reassemble = node_id in self.cache
-        self.cache[node_id] = (_host(pts), _host(valid),
+        self.cache[node_id] = (to_numpy(pts), to_numpy(valid),
                                None if colors is None else np.asarray(colors))
         self.poses[node_id] = np.asarray(pose)
         if reassemble:
@@ -197,10 +200,6 @@ def _unpack(k: np.ndarray) -> np.ndarray:
                      k & _KEY_MASK], axis=1) - _KEY_OFF
 
 
-def _host(a) -> np.ndarray:
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
 def _scatter_logodds(bricks: torch.Tensor, lin_idx: torch.Tensor, delta: torch.Tensor,
                      clamp: float) -> None:
     """Add ``delta`` at the flat voxel indices (unique after the host
@@ -208,3 +207,80 @@ def _scatter_logodds(bricks: torch.Tensor, lin_idx: torch.Tensor, delta: torch.T
     flat = bricks.view(-1)
     flat.index_add_(0, lin_idx, delta)
     flat.clamp_(-clamp, clamp)
+
+
+# ----------------------------------------------------------------- elevation
+
+
+def _elev_scatter(hmax: torch.Tensor, hsum: torch.Tensor, hcnt: torch.Tensor,
+                  cells: torch.Tensor, heights: torch.Tensor, mask: torch.Tensor):
+    """Masked points into the (n,n) max / sum / count layers."""
+    n = hmax.shape[0]
+    idx = torch.where(mask, cells, n * n).to(torch.int64)
+    pad = lambda a, fill: torch.cat([a.reshape(-1), a.new_full((1,), fill)])  # noqa: E731
+    hmax = pad(hmax, float("-inf")).scatter_reduce(
+        0, idx, torch.where(mask, heights, float("-inf")), "amax")
+    hsum = pad(hsum, 0.0).index_add_(0, idx, torch.where(mask, heights, 0.0))
+    hcnt = pad(hcnt, 0.0).index_add_(0, idx, mask.to(hcnt.dtype))
+    return (hmax[:-1].reshape(n, n), hsum[:-1].reshape(n, n), hcnt[:-1].reshape(n, n))
+
+
+class ElevationMap:
+    """2-D height-surface map (max + mean height a cell) assembled from node
+    clouds on ``device`` (None = the CUDA card) (reference:
+    global_map/GridMap.cpp's elevation layer)."""
+
+    def __init__(self, cell_size: float = 0.1, size_m: float = 40.0, up_axis: int = 2,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.cell = cell_size
+        self.n = int(size_m / cell_size)
+        self.origin = -size_m / 2.0
+        self.up = up_axis
+        self.plane = tuple(a for a in (0, 1, 2) if a != up_axis)
+        self._reset()
+        self.cache: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self.poses: Dict[int, np.ndarray] = {}
+
+    def _reset(self):
+        z = lambda fill: torch.full((self.n, self.n), fill, dtype=torch.float32,  # noqa: E731
+                                    device=self.device)
+        self.hmax, self.hsum, self.hcnt = z(float("-inf")), z(0.0), z(0.0)
+
+    def _apply(self, pose, pts, valid):
+        dev = self.device
+        P = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
+        world = T.apply(P[None], torch.as_tensor(to_numpy(pts), device=dev)[None])[0]
+        uv = world[:, list(self.plane)]
+        h = world[:, self.up]
+        cell = torch.tensor(self.cell, dtype=torch.float32, device=dev)
+        cx = torch.floor((uv[:, 0] - self.origin) / cell).to(torch.int64)
+        cy = torch.floor((uv[:, 1] - self.origin) / cell).to(torch.int64)
+        ok = (torch.as_tensor(to_numpy(valid), device=dev) & (cx >= 0) & (cx < self.n)
+              & (cy >= 0) & (cy < self.n))
+        self.hmax, self.hsum, self.hcnt = _elev_scatter(
+            self.hmax, self.hsum, self.hcnt, cy * self.n + cx, h, ok)
+
+    def update(self, node_id: int, pose, pts, valid):
+        reassemble = node_id in self.cache
+        self.cache[node_id] = (to_numpy(pts), to_numpy(valid))
+        self.poses[node_id] = np.asarray(pose)
+        if reassemble:
+            self.assemble(self.poses)
+        else:
+            self._apply(pose, pts, valid)
+
+    def assemble(self, poses: Dict[int, np.ndarray]):
+        self._reset()
+        for nid, pose in poses.items():
+            if nid in self.cache:
+                self.poses[nid] = np.asarray(pose)
+                self._apply(pose, *self.cache[nid])
+
+    def arrays(self):
+        """-> (max_height, mean_height, known mask) as numpy, unknown = nan."""
+        cnt = self.hcnt.cpu().numpy()
+        known = cnt > 0
+        mean = np.where(known, self.hsum.cpu().numpy() / np.maximum(cnt, 1), np.nan)
+        hmax = np.where(known, self.hmax.cpu().numpy(), np.nan)
+        return hmax, mean, known

@@ -8,14 +8,11 @@ either package opens in the other with equal arrays.
 
 Differences from the twin, none of them on disk:
 
-- Laser scans and local occupancy grids (the ``scan`` and ``grid`` columns
-  of Data) are carried as their stored blobs: the port has no
-  ``LaserScan``/``LocalGrid`` yet, so ``load_signature`` puts the blob
-  (``bytes``) into ``Signature.scan`` / ``Signature.grid`` and
-  ``save_signature`` writes such a blob back unchanged; loading and
-  re-saving a store written by the JAX package loses nothing. A grid given
-  as a ``LocalGrid``-like named tuple of arrays is packed as the twin
-  packs it; a scan given as anything but a blob raises.
+- A laser scan is packed from its tensors (copied to the host on the
+  caller's thread) and comes back as a ``LaserScan`` of CPU tensors; the
+  engine moves a scan to its device where it uses one. A local grid comes
+  back as a ``LocalGrid`` of numpy arrays, as in the twin. A blob (bytes)
+  in ``Signature.scan`` or ``Signature.grid`` is written back unchanged.
 - ``save_signature`` builds its row (every array packed) on the caller's
   thread from the signature's host arrays, and refuses a signature whose
   deferred create is still in flight: the writer thread never touches a
@@ -34,8 +31,10 @@ import zlib
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from rtabmap_tpu_torch.core.frame import EnvSensor
+from rtabmap_tpu_torch.device import to_numpy
 from rtabmap_tpu_torch.memory.memory import Link, Signature
 
 _SCHEMA = """
@@ -151,27 +150,68 @@ def _unpack(blob) -> Optional[np.ndarray]:
 
 
 def _pack_scan(scan) -> Optional[bytes]:
-    """A stored scan blob passes through unchanged; the port has no
-    ``LaserScan`` to pack yet."""
+    """LaserScan -> blob (data, valid, format, max_range, local_transform)."""
     if scan is None or isinstance(scan, bytes):
         return scan
-    raise NotImplementedError("saving a laser scan is not ported yet; it comes with "
-                              "the core/laser_scan.py slice")
+    buf = io.BytesIO()
+    np.savez(buf,
+             data=to_numpy(scan.data), valid=to_numpy(scan.valid),
+             fmt=np.int32(scan.format), max_range=np.float32(scan.max_range),
+             lt=(np.zeros((0,)) if scan.local_transform is None
+                 else to_numpy(scan.local_transform)))
+    return zlib.compress(buf.getvalue(), 1)
+
+
+def _unpack_scan(blob):
+    """Blob -> LaserScan of CPU tensors."""
+    if blob is None:
+        return None
+    from rtabmap_tpu_torch.core.laser_scan import LaserScan
+
+    z = np.load(io.BytesIO(zlib.decompress(blob)), allow_pickle=False)
+    lt = z["lt"]
+    return LaserScan(data=torch.from_numpy(z["data"]), valid=torch.from_numpy(z["valid"]),
+                     format=int(z["fmt"]), max_range=float(z["max_range"]),
+                     local_transform=None if lt.size == 0 else torch.from_numpy(lt))
 
 
 def _pack_grid(grid) -> Optional[bytes]:
-    """A stored grid blob passes through unchanged; a ``LocalGrid``-like
-    named tuple of arrays is packed as the twin packs it (valid cells
-    only)."""
+    """LocalGrid -> blob (valid cells only; capacity restored on load)."""
     if grid is None or isinstance(grid, bytes):
         return grid
-    g = {k: np.asarray(v) for k, v in grid._asdict().items()}
+    g = {k: to_numpy(v) for k, v in grid._asdict().items()}
     buf = io.BytesIO()
     np.savez(buf,
              ground=g["ground"][g["ground_valid"].astype(bool)],
              obstacles=g["obstacles"][g["obstacles_valid"].astype(bool)],
              empty=g["empty"][g["empty_valid"].astype(bool)])
     return zlib.compress(buf.getvalue(), 1)
+
+
+def _unpack_grid(blob, capacity: Optional[int] = None):
+    """Blob -> LocalGrid of numpy arrays, each cell set padded to
+    ``capacity`` (default: its own size)."""
+    if blob is None:
+        return None
+    from rtabmap_tpu_torch.maps.grids import LocalGrid
+
+    z = np.load(io.BytesIO(zlib.decompress(blob)), allow_pickle=False)
+
+    def slab(pts):
+        n = len(pts)
+        cap = capacity or max(1, n)
+        out = np.zeros((cap, 2), np.float32)
+        ok = np.zeros((cap,), bool)
+        m = min(n, cap)
+        out[:m] = pts[:m]
+        ok[:m] = True
+        return out, ok
+
+    g, gv = slab(z["ground"])
+    o, ov = slab(z["obstacles"])
+    e, ev = slab(z["empty"])
+    return LocalGrid(ground=g, ground_valid=gv, obstacles=o, obstacles_valid=ov,
+                     empty=e, empty_valid=ev)
 
 
 class Database:
@@ -310,7 +350,9 @@ class Database:
         if data is not None:
             (sig.word_ids, sig.desc, sig.uv, sig.pts3d,
              sig.valid3d) = (_unpack(b) for b in data[:5])
-            sig.user_data, sig.scan, sig.grid = data[5], data[6], data[7]
+            sig.user_data = data[5]
+            sig.scan = _unpack_scan(data[6])
+            sig.grid = _unpack_grid(data[7])
             if data[8] is not None:
                 sig.env_sensors = [EnvSensor(int(t), float(v), float(s))
                                    for t, v, s in _unpack(data[8])]

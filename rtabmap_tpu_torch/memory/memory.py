@@ -86,7 +86,7 @@ class Signature:
                                  # a deferred create is in flight
     in_ltm: bool = False
     label: str = ""
-    scan: Optional[bytes] = None  # a stored scan blob, carried unchanged
+    scan: Optional[object] = None   # a core/laser_scan.LaserScan
     user_data: Optional[bytes] = None
     grid: Optional[object] = None
     env_sensors: list = field(default_factory=list)
@@ -831,3 +831,19 @@ class Memory:
                 elif j < 0 and lk.type == LINK_LANDMARK:
                     links.append(lk)
         return poses, links
+
+
+def _shared_word_rows(words_a: np.ndarray, words_b: np.ndarray):
+    """Indices (ia, ib) of the unique words present in both signatures, in
+    ``np.intersect1d``'s order (duplicated words are ambiguous and dropped,
+    the reference's unique-word correspondence rule)."""
+
+    def unique_rows(w):
+        vals, idx, counts = np.unique(np.asarray(w), return_index=True, return_counts=True)
+        keep = (vals >= 0) & (counts == 1)
+        return vals[keep], idx[keep]
+
+    va, ia = unique_rows(words_a)
+    vb, ib = unique_rows(words_b)
+    _, ca, cb = np.intersect1d(va, vb, return_indices=True)
+    return ia[ca].astype(np.int32), ib[cb].astype(np.int32)

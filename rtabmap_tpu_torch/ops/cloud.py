@@ -56,16 +56,11 @@ def voxel_filter(pts: torch.Tensor, valid: torch.Tensor, voxel: float,
     return valid & (owner[h] == order)
 
 
-def estimate_normals(pts: torch.Tensor, valid: torch.Tensor, k: int = 8,
-                     viewpoint: Optional[torch.Tensor] = None):
-    """k-NN PCA normals of a (N,3) slab, oriented toward ``viewpoint``
-    (the origin by default) -> (normals (N,3), zero where invalid;
-    curvature (N,)). Exact brute-force k-NN on direct squared differences,
-    taken a block of rows at a time so that the N x N matrix never sits
-    whole in memory (3.3 GB at 28800 points). Neighbours tied in distance
-    at the k-th place can be picked in another order than by the JAX
-    twin's ``top_k``: only duplicated points tie exactly, and copies give
-    the same covariance."""
+def _knn_blocked(pts: torch.Tensor, valid: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """(N,k) indices of each row's k nearest rows by direct squared
+    differences, a block of rows at a time so that the N x N matrix never
+    sits whole in memory; with ``valid``, pairs with an invalid end read
+    +inf."""
     n = pts.shape[0]
     px, py, pz = pts[:, 0], pts[:, 1], pts[:, 2]
     rows = max(1, _NORMALS_PAIRS // max(n, 1))
@@ -76,18 +71,49 @@ def estimate_normals(pts: torch.Tensor, valid: torch.Tensor, k: int = 8,
         dy = p[:, 1:2] - py
         dz = p[:, 2:3] - pz
         d2 = (dx * dx + dy * dy) + dz * dz
-        d2 = torch.where(valid[None, :] & valid[r0:r0 + rows, None], d2, float("inf"))
+        if valid is not None:
+            d2 = torch.where(valid[None, :] & valid[r0:r0 + rows, None], d2, float("inf"))
         idx[r0:r0 + rows] = torch.topk(d2, k, dim=1, largest=False).indices
-    nbrs = pts[idx]                                    # (N,k,3)
+    return idx
+
+
+def _pca_normals(nbrs: torch.Tensor, pts: torch.Tensor, viewpoint: torch.Tensor):
+    """Normals (smallest-eigenvalue eigenvectors of the (M,k,3)
+    neighbourhoods' covariances) oriented toward ``viewpoint`` from
+    ``pts``, and curvatures."""
     X = nbrs - nbrs.mean(dim=1, keepdim=True)
-    cov = torch.einsum("nki,nkj->nij", X, X) / k
+    cov = torch.einsum("nki,nkj->nij", X, X) / nbrs.shape[1]
     lam_min, normal = L3.eigvec_min_sym3(cov)
-    if viewpoint is None:
-        viewpoint = torch.zeros((3,), dtype=pts.dtype, device=pts.device)
     flip = (normal * (viewpoint[None] - pts)).sum(-1) < 0
     normal = torch.where(flip[:, None], -normal, normal)
     curvature = lam_min / torch.clamp_min(cov.diagonal(dim1=-2, dim2=-1).sum(-1), 1e-12)
-    return torch.where(valid[:, None], normal, torch.zeros_like(normal)), curvature
+    return normal, curvature
+
+
+def estimate_normals(pts: torch.Tensor, valid: torch.Tensor, k: int = 8,
+                     viewpoint: Optional[torch.Tensor] = None):
+    """k-NN PCA normals of a (N,3) slab, oriented toward ``viewpoint``
+    (the origin by default) -> (normals (N,3), zero where invalid;
+    curvature (N,)). Exact brute-force k-NN among the valid points only:
+    they are compacted in order (one host sync for their count), searched
+    among themselves and scattered back, so a slab with few valid rows
+    costs its valid rows squared. An invalid row reads the curvature of
+    rows 0..k-1, the neighbours the JAX twin's ``top_k`` picks for a row
+    with no valid pair. Neighbours tied in distance at the k-th place can
+    be picked in another order than by the twin's ``top_k``: only
+    duplicated points tie exactly, and copies give the same covariance."""
+    if viewpoint is None:
+        viewpoint = torch.zeros((3,), dtype=pts.dtype, device=pts.device)
+    rows = torch.nonzero(valid)[:, 0]
+    if rows.numel() < k:   # fewer valid points than neighbours: pairs with invalid ones
+        normal, curvature = _pca_normals(pts[_knn_blocked(pts, valid, k)], pts, viewpoint)
+        return torch.where(valid[:, None], normal, torch.zeros_like(normal)), curvature
+    sub = pts[rows]
+    normal_v, curv_v = _pca_normals(sub[_knn_blocked(sub, None, k)], sub, viewpoint)
+    _, curv_inv = _pca_normals(pts[None, :k], pts[:1], viewpoint)
+    normal = torch.zeros_like(pts).index_copy_(0, rows, normal_v)
+    curvature = curv_inv.expand(pts.shape[0]).clone().index_copy_(0, rows, curv_v)
+    return normal, curvature
 
 
 def normals_from_depth(depth: torch.Tensor, cam: C.CameraModel):

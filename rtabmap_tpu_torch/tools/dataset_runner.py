@@ -4,7 +4,8 @@ Port of ``run_dataset`` from ``rtabmap_tpu/tools/dataset_runner.py`` (the
 reference's RgbdDataset main loop: odometry, covariance >= 9999 starts a
 new map, the end-of-run ``graph::calcRMSE``) for RGB-D frames: each
 frame's features go through ``OdometryF2M.process`` and
-``Rtabmap.process``. With a map store (``db``) each frame's raw image and
+``Rtabmap.process``, with the frame's laser scan and local grid when it
+carries them. With a map store (``db``) each frame's raw image and
 depth go to ``process`` for the store. ``slam`` continues an engine the
 caller made (e.g. ``Rtabmap.load`` of a store, for a resumed or a
 localization session) with a new odometry. Stereo frames, IMU samples,
@@ -117,6 +118,7 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
             slam_feat = feat._replace(valid=feat.valid & keep, valid3d=feat.valid3d & keep)
         _t = time.perf_counter()
         st = slam.process(slam_feat, pose, cov, stamp=fr.stamp, gt_pose=fr.gt_pose,
+                          scan=fr.scan, grid=fr.grid,
                           raw=(fr.gray, fr.depth) if keep_raw else None,
                           extra_stats={"Odometry/TotalTime/ms": odom_ms, **capture_stats})
         sync()

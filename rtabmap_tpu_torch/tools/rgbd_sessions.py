@@ -199,12 +199,12 @@ def store_counts(path: str, map_id_below: int) -> Dict[str, int]:
 
 def iter_sessions(path: str, device: DeviceLike = None, frames: int = 0,
                   size: Tuple[int, int] = (640, 480), seed: int = 0,
-                  on_frame=None) -> Iterator[Dict]:
-    """Run the three sessions against the store at ``path`` on ``device``
-    (None = the CUDA card), one per step of the iteration, each ending
-    with its store closed; yields each session's summary (the raw run
-    under ``"run"``). ``on_frame(session, i)`` is called right before
-    frame i of a session is handed over."""
+                  on_frame=None, sessions: Tuple[str, ...] = SESSIONS) -> Iterator[Dict]:
+    """Run ``sessions`` (by default all three, in order) against the store
+    at ``path`` on ``device`` (None = the CUDA card), one per step of the
+    iteration, each ending with its store closed; yields each session's
+    summary (the raw run under ``"run"``). ``on_frame(session, i)`` is
+    called right before frame i of a session is handed over."""
     from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
     from rtabmap_tpu_torch.memory.db import Database
     from rtabmap_tpu_torch.tools.dataset_runner import run_dataset
@@ -213,7 +213,7 @@ def iter_sessions(path: str, device: DeviceLike = None, frames: int = 0,
     spec = sequence_spec("full")
     cam = C.CameraModel.make(*camera(size))
     world = World(spec["world"], DEFAULT_WORLD.seed)
-    for name in SESSIONS:
+    for name in sessions:
         poses = session_poses(name)
         if frames:
             poses = poses[:frames]

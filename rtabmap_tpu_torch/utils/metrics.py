@@ -13,11 +13,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from rtabmap_tpu_torch.device import to_numpy as _host
 from rtabmap_tpu_torch.geometry import transform as T
-
-
-def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def align_umeyama(est_t, gt_t, with_scale: bool = False):

@@ -8,9 +8,10 @@ it with the port or the JAX package and one seed each. Prints the map's
 local consistency (the translation error of each node's optimized pose
 relative to the next node's, and to the nearest node of the other
 session, against the ground truth; the ATE) and, per localization run,
-the localized frames, their errors and the frames the odometry-cache check
-rejected. It separates what the map contributes to the localization
-counts from what the localizing package contributes.
+the localized frames, their errors, the frames the odometry-cache check
+rejected and each frame's worst edge-error ratio in that check. It
+separates what the map contributes to the localization counts from what
+the localizing package contributes.
 
 Usage (from the repository root; the JAX package on the CPU):
     PYTHONPATH=.:scripts python scripts/localize_stored_map.py --build port \\
@@ -162,7 +163,11 @@ def localize(path: str, pkg: str, seed: int) -> dict:
     return {"localize": pkg, "seed": seed, "localized": len(errs),
             "err_m_median": float(np.median(errs)) if errs else None,
             "rejected_frames": [k for k, st in enumerate(hist)
-                                if st.get("Loop/Rejected by optimization/") > 0]}
+                                if st.get("Loop/Rejected by optimization/") > 0],
+            # each frame's worst edge-error ratio of the odometry-cache check
+            # (RGBD/OptimizeMaxError rejects past 3.0; 0 = no check ran)
+            "cache_check_ratios": [round(st.get("Loop/Optimization max error ratio/"), 3)
+                                   for st in hist]}
 
 
 def main():

@@ -136,3 +136,45 @@ def test_lidar_simulator_matches_jax():
         clean, _ = S.lidar_scan(pose, n_azimuth=20, n_rings=4, elev_span=S.VLP16_ELEV_SPAN,
                                 device="cpu")
         np.testing.assert_allclose((pts - clean).numpy(), S.sensor_noise(rng, 80, 0.01), atol=1e-6)
+
+
+def _dense_normals(pts, valid, k=8):
+    """The port's estimate_normals before it compacted the valid rows: the
+    blocked k-NN over all N rows, invalid ones included."""
+    n = pts.shape[0]
+    d2 = ((pts[:, None, :] - pts[None]) ** 2)
+    d2 = (d2[..., 0] + d2[..., 1]) + d2[..., 2]
+    d2 = torch.where(valid[None, :] & valid[:, None], d2, float("inf"))
+    idx = torch.topk(d2, k, dim=1, largest=False).indices
+    nbrs = pts[idx]
+    X = nbrs - nbrs.mean(dim=1, keepdim=True)
+    cov = torch.einsum("nki,nkj->nij", X, X) / k
+    from rtabmap_tpu_torch.ops import linalg as L3
+
+    lam, normal = L3.eigvec_min_sym3(cov)
+    flip = (normal * (-pts)).sum(-1) < 0
+    normal = torch.where(flip[:, None], -normal, normal)
+    curv = lam / torch.clamp_min(cov.diagonal(dim1=-2, dim2=-1).sum(-1), 1e-12)
+    return torch.where(valid[:, None], normal, torch.zeros_like(normal)), curv, n
+
+
+def test_estimate_normals_mostly_invalid_slab():
+    """A slab padded past twice its points, as the engine's assembled scan
+    maps are: the compacted search gives the dense search's normals and
+    curvatures on the valid rows bit for bit (the same distances, the same
+    k smallest), zero normals on the invalid rows, and there the JAX
+    twin's curvature (its top_k gives a row without valid pairs the
+    neighbours 0..k-1)."""
+    pts, valid = _scan()
+    valid = np.array(JCL.voxel_filter(jnp.asarray(pts), jnp.asarray(valid), 0.05))
+    pad = 3 * pts.shape[0]
+    pts = np.concatenate([pts, np.zeros((pad, 3), np.float32)])
+    valid = np.concatenate([valid, np.zeros(pad, bool)])
+    assert valid.mean() < 0.5
+    nt, ct = CL.estimate_normals(torch.from_numpy(pts), torch.from_numpy(valid), k=8)
+    nd, cd, _ = _dense_normals(torch.from_numpy(pts), torch.from_numpy(valid))
+    assert torch.equal(nt[torch.from_numpy(valid)], nd[torch.from_numpy(valid)])
+    assert torch.equal(ct[torch.from_numpy(valid)], cd[torch.from_numpy(valid)])
+    np.testing.assert_array_equal(nt.numpy()[~valid], 0.0)
+    _, cj = JCL.estimate_normals(jnp.asarray(pts), jnp.asarray(valid), k=8)
+    np.testing.assert_allclose(ct.numpy()[~valid], np.asarray(cj)[~valid], atol=5e-5)

@@ -12,7 +12,8 @@ keyframe decisions, the F2M map's ids and order exactly; poses and map
 points to 1e-4 (float32 sums in another order on the card, atomics in
 ``index_add_``); engine ticks: closure ids, link sets and statistic keys
 exactly, optimized poses to 1e-3 (both engines draw the same RANSAC
-samples from their CPU generators; float32 sums run in another order)."""
+samples from their CPU generators; float32 sums run in another order);
+scan ticks alike, the refining and scan-closure flags exactly."""
 import numpy as np
 import pytest
 import torch
@@ -126,6 +127,47 @@ def test_rgbd_engine_ticks_on_the_card_equal_the_cpu():
         closures += int(a.loop_closure_id > 0)
         proximity += int(a.get("Proximity/Space links added/"))
     assert closures >= 1 and proximity >= 1
+
+
+@pytest.mark.cuda
+def test_scan_engine_ticks_on_the_card_equal_the_cpu():
+    """The RGB-D + LiDAR tick (neighbour-link refining, the scan-ICP
+    proximity fallback, VhEp) on the card against the CPU: the same
+    frames and 16 x 120 VLP-16 scans through packets (tools/rgbd_scan.py),
+    K2 launched on the card."""
+    from rtabmap_tpu_torch.datasets.synthetic import DEFAULT_WORLD
+    from rtabmap_tpu_torch.ops.cuda import nn3d as K2
+    from rtabmap_tpu_torch.tools import rgbd_scan as RSC
+
+    dev = _card()
+    ways = list(range(9)) + [2, 1, 0]
+    ticks = _frames(ways, n_loop=48)
+    poses = loop_trajectory(48)
+    scans = [RSC.sensor_scan(poses[w], DEFAULT_WORLD.half_extent, 120, torch.device("cpu"))[0]
+             for w in ways]
+    over = {"Tpu/VocabularyCapacity": 8192, "Mem/STMSize": 2, "VhEp/Enabled": True,
+            "RGBD/NeighborLinkRefining": True, "Rtabmap/DetectionRate": 0}
+    cs = Rtabmap(CAM, Parameters(over), node_capacity=32, words_per_frame=K, device="cpu")
+    gs = Rtabmap(CAM, Parameters(over), node_capacity=32, words_per_frame=K, device=dev)
+    K2.nn3d_search.launches = 0
+    refined = 0
+    for i, ((fr, pose), scan) in enumerate(zip(ticks, scans)):
+        a = cs.process(fr, pose, stamp=float(i + 1), scan=scan)
+        b = gs.process(_to(fr, dev), pose, stamp=float(i + 1), scan=scan.to(dev))
+        assert (b.ref_id, b.loop_closure_id) == (a.ref_id, a.loop_closure_id), i
+        assert set(b.data) == set(a.data), i
+        for key in ("NeighborLinkRefining/Accepted/", "Proximity/Space links added/",
+                    "Proximity/Space detections added icp multi/", "Loop/Epipolar pairs/"):
+            assert b.get(key) == a.get(key), (i, key)
+        links = lambda s: sorted((i, j, lk.type) for i, g in s.memory.signatures.items()  # noqa: E731
+                                 for j, lk in g.links.items())
+        assert links(gs) == links(cs), i
+        co, go = cs.get_optimized_poses(), gs.get_optimized_poses()
+        for k in co:
+            np.testing.assert_allclose(go[k], co[k], atol=1e-3)
+        refined += int(a.get("NeighborLinkRefining/Accepted/"))
+    assert refined >= len(ways) - 2, refined
+    assert K2.nn3d_search.launches > 0
 
 
 def _planar_ring(n: int, seed: int = 0):

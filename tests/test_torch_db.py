@@ -5,8 +5,9 @@ The store's format is the JAX package's, byte for byte (``np.save``
 blobs compressed by zlib at level 1), so every comparison here is exact:
 arrays with ``np.testing.assert_array_equal`` (same dtype and shape),
 ids, links, counts and statistics with ``==``. A laser scan or a local
-grid written by the JAX package passes through the port as its stored
-blob and reads back in the JAX package equal to what it wrote. The
+grid written by either package reads back in the other with equal arrays
+(the port's ``LaserScan`` holds CPU tensors, its stored ``LocalGrid``
+numpy arrays, as the twin's). The
 engine-level twins run the port alone on the CPU (no JAX engine, no jit):
 4 and 14 ticks at 160x120 with 128 keypoints."""
 import threading
@@ -28,7 +29,11 @@ from rtabmap_tpu_torch.core.frame import (
 )
 from rtabmap_tpu_torch.datasets.synthetic import loop_trajectory, render
 from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
+from rtabmap_tpu_torch.core.laser_scan import LaserScan as PLaserScan
+from rtabmap_tpu_torch.core.laser_scan import ScanFormat as PScanFormat
+from rtabmap_tpu_torch.core.laser_scan import make_scan
 from rtabmap_tpu_torch.geometry import camera as C
+from rtabmap_tpu_torch.maps.grids import LocalGrid as PLocalGrid
 from rtabmap_tpu_torch.memory.db import Database
 from rtabmap_tpu_torch.memory.memory import Link, Signature
 from rtabmap_tpu_torch.utils.params import Parameters
@@ -276,8 +281,9 @@ def _same_signature(a, b):
 def test_store_written_by_jax_opens_in_the_port(tmp_path):
     """Signatures, links, raw frames, statistics, the vocabulary and the
     optimized poses written by the JAX package read back equal in the
-    port; re-saved by the port, the JAX package reads its laser scan and
-    local grid back unchanged."""
+    port, the laser scan as a ``LaserScan`` and the local grid as a
+    ``LocalGrid`` with equal arrays; re-saved by the port, the JAX package
+    reads its laser scan and local grid back unchanged."""
     path, path2 = str(tmp_path / "jax.db"), str(tmp_path / "port.db")
     sigs = _jax_signatures()
     jdb = JDatabase(path, async_writes=False)
@@ -299,8 +305,16 @@ def test_store_written_by_jax_opens_in_the_port(tmp_path):
         got = db.load_signature(s.id)
         _same_signature(got, s)
         assert got.in_ltm
-    assert isinstance(db.load_signature(2).scan, bytes)
-    assert isinstance(db.load_signature(3).grid, bytes)
+    scan, want = db.load_signature(2).scan, sigs[1].scan
+    assert isinstance(scan, PLaserScan)
+    for name in ("data", "valid", "local_transform"):
+        np.testing.assert_array_equal(getattr(scan, name).numpy(), getattr(want, name))
+    assert (scan.format, scan.max_range) == (want.format, want.max_range)
+    grid, want = db.load_signature(3).grid, sigs[2].grid
+    assert isinstance(grid, PLocalGrid)
+    for name in ("ground", "obstacles", "empty"):
+        np.testing.assert_array_equal(getattr(grid, name)[getattr(grid, name + "_valid")],
+                                      getattr(want, name)[getattr(want, name + "_valid")])
     im, dp, _ = db.load_raw_frame(6)
     np.testing.assert_array_equal(im, image)
     np.testing.assert_array_equal(dp, image * 2)
@@ -367,6 +381,54 @@ def test_store_written_by_the_port_opens_in_jax(tmp_path):
     np.testing.assert_array_equal(adm["vocab"]["slab"], st["slab"][:77])
     assert (adm["vocab"]["n_words"], adm["vocab"]["capacity"], adm["vocab"]["nndr"]) == \
         (77, 1024, 0.8)
+    jdb.close()
+
+
+@pytest.mark.parametrize("fmt", [PScanFormat.XYZ, PScanFormat.XYZI, PScanFormat.XY])
+def test_port_scans_and_grids_open_in_jax(tmp_path, fmt):
+    """A ``LaserScan`` and a ``LocalGrid`` of tensors saved by the port
+    read back in the port and in the JAX package with equal arrays (the
+    grid's valid cells: a store keeps only those)."""
+    rng = np.random.default_rng(int(fmt))
+    n = 40
+    data = rng.normal(size=(n, {0: 3, 1: 4, 10: 2}[int(fmt)])).astype(np.float32)
+    valid = rng.random(n) > 0.3
+    lt = None if fmt == PScanFormat.XYZI else rng.normal(size=(3, 4)).astype(np.float32)
+    scan = make_scan(data, fmt, valid=valid, max_range=30.0, local_transform=lt,
+                     device="cpu")
+    cells = {k: torch.from_numpy(rng.random((12, 2)).astype(np.float32))
+             for k in ("ground", "obstacles", "empty")}
+    grid = PLocalGrid(cells["ground"], torch.arange(12) < 4, cells["obstacles"],
+                      torch.arange(12) % 2 == 0, cells["empty"], torch.ones(12, dtype=torch.bool))
+    sig = Signature(id=1, map_id=0, stamp=1.0, pose=np.eye(3, 4, dtype=np.float32))
+    sig.scan, sig.grid = scan, grid
+    path = str(tmp_path / "scan.db")
+    db = Database(path)
+    db.save_signature(sig)
+    db.close()
+    db = Database(path, async_writes=False)
+    got = db.load_signature(1)
+    for name in ("data", "valid"):
+        assert torch.equal(getattr(got.scan, name), getattr(scan, name))
+    assert (got.scan.format, got.scan.max_range) == (int(fmt), 30.0)
+    assert (got.scan.local_transform is None) == (lt is None)
+    db.close()
+    jdb = JDatabase(path, async_writes=False)
+    js = jdb.load_signature(1)
+    np.testing.assert_array_equal(js.scan.data, data)
+    np.testing.assert_array_equal(js.scan.valid, valid)
+    assert (js.scan.format, js.scan.max_range) == (int(fmt), 30.0)
+    if lt is None:
+        assert js.scan.local_transform is None
+    else:
+        np.testing.assert_array_equal(js.scan.local_transform, lt)
+    np.testing.assert_array_equal(np.asarray(js.scan.xyz()), got.scan.xyz().numpy())
+    for name in ("ground", "obstacles", "empty"):
+        want = getattr(grid, name)[getattr(grid, name + "_valid")].numpy()
+        np.testing.assert_array_equal(getattr(js.grid, name)[getattr(js.grid, name + "_valid")],
+                                      want)
+        np.testing.assert_array_equal(
+            getattr(got.grid, name)[getattr(got.grid, name + "_valid")], want)
     jdb.close()
 
 

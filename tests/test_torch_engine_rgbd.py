@@ -106,18 +106,24 @@ def test_default_parameters_construct_and_refuse_what_is_not_ported():
     slam = Rtabmap(cam, Parameters({"Tpu/VocabularyCapacity": 1024}), node_capacity=16,
                    words_per_frame=8, device="cpu")
     assert slam.rgbd_mode and slam.incremental_optimization
-    with pytest.raises(NotImplementedError):
-        Rtabmap(cam, Parameters({"VhEp/Enabled": True}), device="cpu")
+    # epipolar verification and intermediate nodes are ported
+    assert Rtabmap(cam, Parameters({"VhEp/Enabled": True, "Tpu/VocabularyCapacity": 1024}),
+                   node_capacity=16, words_per_frame=8, device="cpu").vh_ep_enabled
     from rtabmap_tpu_torch.memory.db import Database
 
     db = Database(":memory:", async_writes=False)    # the map store is ported
     assert Rtabmap(cam, Parameters({"Tpu/VocabularyCapacity": 1024}), db=db,
                    node_capacity=16, words_per_frame=8, device="cpu").memory.db is db
     db.close()
-    with pytest.raises(NotImplementedError):
-        Rtabmap(cam, Parameters({"Rtabmap/CreateIntermediateNodes": True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="scan"):
-        slam.process(None, np.eye(3, 4), scan=object())
+    assert Rtabmap(cam, Parameters({"Rtabmap/CreateIntermediateNodes": True,
+                                    "Tpu/VocabularyCapacity": 1024}),
+                   node_capacity=16, words_per_frame=8,
+                   device="cpu").create_intermediate_nodes
+    # what stays refused: landmarks and learned float descriptors
+    with pytest.raises(NotImplementedError, match="landmarks"):
+        slam.process(None, np.eye(3, 4), landmarks=[object()])
+    with pytest.raises(NotImplementedError, match="learned"):
+        slam.process(None, np.eye(3, 4), descf=np.zeros((8, 256), np.float32))
 
 
 @pytest.mark.slow

@@ -22,6 +22,10 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "rtabmap_tpu") or m.startswith(("jax.", "jaxlib.", "rtabmap_tpu.")))
 print(len(names), bad)
 assert not bad, bad
+new = {"rtabmap_tpu_torch.ops.epipolar", "rtabmap_tpu_torch.core.laser_scan",
+       "rtabmap_tpu_torch.sensors", "rtabmap_tpu_torch.sensors.lidar",
+       "rtabmap_tpu_torch.maps.grids", "rtabmap_tpu_torch.tools.rgbd_scan"}
+assert new <= set(names), sorted(new - set(names))
 """
 
 
@@ -37,7 +41,11 @@ def test_entry_points_without_a_card_raise():
     from rtabmap_tpu_torch.core.frame import FeatureExtractor
     from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
     from rtabmap_tpu_torch.geometry import camera as C
-    from rtabmap_tpu_torch.maps.voxel import VoxelOccupancyMap
+    from rtabmap_tpu_torch.core.laser_scan import make_scan
+    from rtabmap_tpu_torch.maps.grids import OccupancyGrid
+    from rtabmap_tpu_torch.maps.voxel import ElevationMap, VoxelOccupancyMap
+    from rtabmap_tpu_torch.sensors.lidar import LidarVLP16
+    from rtabmap_tpu_torch.tools.rgbd_scan import run_mapping
     from rtabmap_tpu_torch.odometry import create_odometry
     from rtabmap_tpu_torch.odometry.scan_f2m import OdometryScanF2M
     from rtabmap_tpu_torch.ops.cuda.nn3d import nn3d
@@ -84,7 +92,12 @@ def test_entry_points_without_a_card_raise():
                  lambda: OdometryScanF2M(),
                  lambda: create_odometry(None, lidar_p),
                  lambda: run_lidar_mapping([scan]),
-                 lambda: VoxelOccupancyMap()):
+                 lambda: VoxelOccupancyMap(),
+                 lambda: ElevationMap(),
+                 lambda: OccupancyGrid(),
+                 lambda: LidarVLP16([]),
+                 lambda: make_scan(np.zeros((4, 3), np.float32)),
+                 lambda: run_mapping("parity")):
         with pytest.raises(RuntimeError):
             make()
     db.close()
@@ -101,8 +114,6 @@ def test_unported_paths_raise_not_implemented():
             words_per_frame=8, device="cpu")          # the RGB-D tick is ported
     with pytest.raises(NotImplementedError):
         Rtabmap(cam, Parameters({"RGBD/Enabled": False}), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Rtabmap(cam, Parameters({"VhEp/Enabled": True}), device="cpu")
     for strategy in (2, 11):   # FAST/BRIEF, SuperPoint
         with pytest.raises(NotImplementedError):
             FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": strategy}),
@@ -110,8 +121,9 @@ def test_unported_paths_raise_not_implemented():
     slam = Rtabmap(cam, Parameters({"RGBD/Enabled": False,
                                     "Tpu/VocabularyCapacity": 1024}),
                    node_capacity=16, words_per_frame=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.process(None, np.eye(3, 4), scan=object())
+    for what in ({"landmarks": [object()]}, {"descf": np.zeros((8, 256), np.float32)}):
+        with pytest.raises(NotImplementedError):
+            slam.process(None, np.eye(3, 4), **what)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "script-alone"])
