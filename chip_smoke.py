@@ -2,7 +2,11 @@
 
 Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--keep-store DIR]
+
+``--keep-store DIR`` also writes the resumed store of the ``rgbd_sessions``
+phase, its stored images and depth dropped, to ``DIR/resumed_stripped.db``
+(for ``scripts/jax_global_ba.py``, the JAX twin's global BA on the CPU).
 
 Phases — any failure ends the run with a non-zero exit code:
 
@@ -54,13 +58,17 @@ Phases — any failure ends the run with a non-zero exit code:
    CPU run of it (``scripts/jax_rgbd_laps.py``); then the full width, two
    60-frame laps at 640x480 with 512 keypoints, the 262144-word vocabulary,
    1024 node slots and the 2000-point F2M map, held against the ground
-   truth and the JAX CPU run's closures. Both check that the F2M map, the
+   truth and the JAX CPU run's closures; this full-width run is the
+   ``rgbd_sessions`` mapping session below (the same frames, camera,
+   parameters and seed), written into its store, so it runs once and is
+   held to both phases' checks. Both check that the F2M map, the
    vocabulary and node slabs and the posterior lie on the card and that
    K1 launched once per quantize call;
 7. slice ``rgbd_sessions``: the map store's user path
    (``tools/rgbd_sessions.py``) on cuda at the same full width, three
    sessions against one SQLite store in a temporary directory: mapping
-   (the two 60-frame laps into a fresh store, ``close()``), resume
+   (the two 60-frame laps into a fresh store, ``repair_graph()``,
+   ``close()``: the rgbd_mapping phase's full-width run), resume
    (``Rtabmap.load``, odometry restarted at the identity, two 85-frame
    laps; the merged graph passes 256 nodes, so its full solves run
    ``optimize_pcg`` at 512 padded nodes) and localization
@@ -90,7 +98,27 @@ Phases — any failure ends the run with a non-zero exit code:
    frames) to the stored scans, the global scan map's registrations and
    their errors, and the localized frames. K2 must launch in all three
    scan stages (neighbour refining, scan proximity, the global scan map):
-   31 searches and one compaction a registration.
+   31 searches and one compaction a registration;
+9. slice ``map_tools``: what a user runs on a finished map store
+   (``tools/cli.py``'s store tools and the engine's maintenance API). First
+   the same inputs on the card and with ``device="cpu"`` (12 frames of the
+   parity trajectory at 320x240: TSDF fusion, surface nets, the texture
+   bake and ``texture_mesh``; ``bundle_adjust_large`` against its CPU run and
+   the dense ``bundle_adjust``), held to the tolerances stated at
+   ``MT_VOXEL_TOL``. Then the full width, on copies of the ``rgbd_sessions``
+   stores: on the mapping session's store ``reprocess`` (every node
+   recreated, 90% of the session's loops, K1 once a quantize call),
+   ``detect_more_loop_closures`` at 1 m (map ATE at most 1.1 x before),
+   ``export`` in the five pose formats read back, ``recovery`` (the same
+   nodes and links); on the resumed store (two sessions)
+   ``global_bundle_adjustment`` (its path, poses on SO(3), its anchors in
+   place, a lower cost, map ATE at most 1.1 x that of the twin's problem,
+   the rotations kept as stored, and at most 0.08 m) and ``export_cloud``
+   as a cloud, ``--mesh`` (90% of the vertices
+   within two voxels of one of the hall's six planes) and ``--texture``
+   (observed texels correlated at least 0.8 with the hall's own texture),
+   each file read back equal. The compaction kernel's library call (a
+   ``nonzero`` and an ``index_select``) is timed in the kernels phase.
 
 Each slice zeroes the launch counts of its kernels right before each run
 and reads them right after; they must equal the calls the run made (K1:
@@ -114,20 +142,29 @@ import time
 import numpy as np
 import torch
 
+from rtabmap_tpu_torch.datasets import synthetic as SYN
 from rtabmap_tpu_torch.datasets.synthetic import VLP16_AZIMUTH
 from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
+from rtabmap_tpu_torch.geometry import camera as CAMERA
 from rtabmap_tpu_torch.geometry import transform as T
+from rtabmap_tpu_torch.maps import mesh as MESH
+from rtabmap_tpu_torch.maps import texture as TEX
+from rtabmap_tpu_torch.maps import tsdf as TSDF
 from rtabmap_tpu_torch.memory.db import Database
 from rtabmap_tpu_torch.ops.cloud import estimate_normals, voxel_filter
 from rtabmap_tpu_torch.ops.cuda import build
 from rtabmap_tpu_torch.ops.cuda import nn3d as K2
 from rtabmap_tpu_torch.ops.cuda import vocab_knn as K1
+from rtabmap_tpu_torch.optim import ba as BA
 from rtabmap_tpu_torch.optim import pose_graph as PG
+from rtabmap_tpu_torch.tools import cli as CLI
 from rtabmap_tpu_torch.tools import bow_laps
 from rtabmap_tpu_torch.tools import lidar_mapping as LM
 from rtabmap_tpu_torch.tools import rgbd_laps
 from rtabmap_tpu_torch.tools import rgbd_scan as RSC
 from rtabmap_tpu_torch.tools import rgbd_sessions
+from rtabmap_tpu_torch.tools.export_poses import import_poses
+from rtabmap_tpu_torch.utils import metrics
 
 # H100 SXM dense peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor op/s,
 # and FP32-pipe instructions/s outside the tensor cores: the data sheet's
@@ -510,6 +547,17 @@ def compact_bound_ms(Q: int, N: int, n_point: int) -> tuple:
     return bytes_ / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def compact_library(dst, valid, src_valid):
+    """The compaction by library calls: ``torch.nonzero`` of the flags and
+    ``index_select`` of the points (and the query order); timed beside the
+    kernel, used nowhere in the port."""
+    idx = torch.nonzero(valid)[:, 0]
+    pts = dst.index_select(0, idx)
+    if src_valid is None:
+        return pts, idx
+    return pts, idx, torch.cat([torch.nonzero(src_valid)[:, 0], torch.nonzero(~src_valid)[:, 0]])
+
+
 def check_compact(name, dst, valid, src_valid):
     """K2's compaction kernel against its plain version: the valid points
     and their indices in order, the query order, the counts."""
@@ -558,6 +606,10 @@ def check_nn3d():
                 library = time_ms(lambda: nn3d_library(src, dst, valid, src_valid), reps=10)
             row.update(kernel_ms=time_ms(search), graph_ms=graph_ms(search),
                        compact_ms=time_ms(prepare), compact_graph_ms=graph_ms(prepare),
+                       compact_plain_ms=time_ms(lambda: K2.nn3d_compact_reference(
+                           dst, valid, src_valid)),
+                       compact_library_ms=time_ms(lambda: compact_library(dst, valid,
+                                                                          src_valid)),
                        plain_ms=time_ms(lambda: K2.nn3d_reference(src, dst, valid, src_valid),
                                         reps=1 if big else 10, warmup=0 if big else 3),
                        library_ms=library,
@@ -576,16 +628,14 @@ def check_nn3d():
           "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
           "bound_ms": main_shape["bound_us"] * 1e-3, "bound_by": main_shape["bound_by"],
           "library_ms": main_shape["library_ms"]}
-    # no one PyTorch call does the compaction (the plain version is a
-    # nonzero, a gather and a concatenation)
     _, src, dst, valid, src_valid = next(c for c in cases if c[0] == "odometry-masked")
     cb, cb_by = compact_bound_ms(src.shape[0], dst.shape[0], int(valid.sum()))
     compact = {"name": "nn3d_compact", "route": "cuda",
                "source": "rtabmap_tpu_torch/csrc/nn3d.cu",
                "replaces": "rtabmap_tpu/ops/pallas/nn3d.py:56", "max_abs_err": 0.0,
-               "ms": main_shape["compact_ms"],
-               "plain_ms": time_ms(lambda: K2.nn3d_compact_reference(dst, valid, src_valid)),
-               "bound_ms": cb, "bound_by": cb_by, "library_ms": None}
+               "ms": main_shape["compact_ms"], "plain_ms": main_shape["compact_plain_ms"],
+               "bound_ms": cb, "bound_by": cb_by,
+               "library_ms": main_shape["compact_library_ms"]}
     return k2, compact
 
 
@@ -693,12 +743,13 @@ def run_lidar_slices() -> tuple:
     return full["nn3d_launches"], full["nn3d_compact_launches"]
 
 
-def run_rgbd(name: str) -> dict:
-    """One RGB-D SLAM run on the card (tools/rgbd_laps.py); checks that the
-    state lies on the card, that K1 launched once per quantize call and
-    that every statistic is finite."""
+def run_rgbd(name: str, run_fn=None) -> dict:
+    """One RGB-D SLAM run on the card (``run_fn``, by default
+    tools/rgbd_laps.py's sequence ``name``, returning its summary); checks
+    that the state lies on the card, that K1 launched once per quantize
+    call and that every statistic is finite."""
     K1.knn2.launches = 0
-    out = rgbd_laps.run_sequence(name, torch.device("cuda"))
+    out = run_fn() if run_fn else rgbd_laps.run_sequence(name, torch.device("cuda"))
     launches = K1.knn2.launches
     run = out.pop("run")
     slam, odom = run["slam"], run["odom"]
@@ -726,9 +777,25 @@ def run_rgbd(name: str) -> dict:
     return res
 
 
-def run_rgbd_slices() -> int:
+def mapping_session(path: str):
+    """The full-width sequence as rgbd_sessions' mapping session, into the
+    store at ``path``: (rgbd_laps' summary, the session's summary, which
+    holds the raw run). One run serves both phases' checks: it is
+    rgbd_laps' full sequence (the same frames, camera, parameters and seed),
+    with the store, ``repair_graph()`` and ``close()`` added. rgbd_laps'
+    summary is taken of the tick's own output, before the repair."""
+    poses = rgbd_sessions.session_poses("mapping")
+    session = next(rgbd_sessions.iter_sessions(
+        path, torch.device("cuda"), seed=LOCALIZATION_SEEDS[0], sessions=("mapping",),
+        on_run=lambda name, run: rgbd_laps.summary(run, poses)))
+    return session.pop("on_run"), session
+
+
+def run_rgbd_slices(path: str) -> tuple:
     """The parity sequence against the JAX CPU numbers, then the full width
-    against the ground truth; returns K1's launches in both."""
+    against the ground truth, written into the store at ``path`` as the
+    sessions' mapping session; returns (K1's launches in both, the mapping
+    session's summary and K1 launches)."""
     par = run_rgbd("parity")
     if par["loops"] < int(0.9 * JAX_RGBD_LOOPS):
         fail(f"RGB-D parity: {par['loops']} loops, JAX CPU {JAX_RGBD_LOOPS}")
@@ -736,7 +803,12 @@ def run_rgbd_slices() -> int:
         fail(f"RGB-D parity: {par['lost']} lost frames, JAX CPU {JAX_RGBD_LOST}")
     if par["ate_slam"] > min(JAX_RGBD_ATE + 0.02, RGBD_ATE_BOUND):
         fail(f"RGB-D parity: ATE {par['ate_slam']:.4f} m, JAX CPU {JAX_RGBD_ATE:.4f} m")
-    full = run_rgbd("full")
+    held = {}
+
+    def full_into_store():
+        out, held["session"] = mapping_session(path)
+        return out
+    full = run_rgbd("full", full_into_store)
     if full["lost"] != 0 or full["ate_slam_frames"] != full["frames"]:
         fail(f"RGB-D full width: {full['lost']} lost, {full['ate_slam_frames']} of "
              f"{full['frames']} frames in the graph")
@@ -745,7 +817,8 @@ def run_rgbd_slices() -> int:
              f"{full['ate_odom']:.4f} m, bound {RGBD_ATE_BOUND} m)")
     if full["loops"] < int(0.9 * JAX_RGBD_FULL_LOOPS):
         fail(f"RGB-D full width: {full['loops']} loops, JAX CPU {JAX_RGBD_FULL_LOOPS}")
-    return par["vocab_knn2_launches"] + full["vocab_knn2_launches"]
+    return (par["vocab_knn2_launches"] + full["vocab_knn2_launches"],
+            (held["session"], full["vocab_knn2_launches"]))
 
 
 def check_session(res: dict, launches: int, frames_before: int):
@@ -817,25 +890,65 @@ def check_pcg_graph(slam) -> dict:
     return row
 
 
-def run_sessions() -> int:
-    """The three sessions on the card (tools/rgbd_sessions.py), the
-    localization once a seed of LOCALIZATION_SEEDS on its own copy of the
-    resumed store; returns K1's launches in them."""
+def check_dense_graph(slam) -> dict:
+    """``optimize_dense`` on the mapping session's graph, padded as the
+    engine pads it: 12 LM iterations eager and as the captured CUDA graph
+    must give the same poses (within 1e-3 m, tests/test_torch_pose_graph.py's
+    bound: float32 atomics in ``index_add_`` order sums differently, and
+    the LM's float32 Cholesky of a system whose diagonal spans 1 .. 1e8
+    amplifies that); both timed (host clock to a sync)."""
+    ids, poses, ef, et, meas, info, switch, priors = slam._build_graph()
+    g, _ = slam._padded_graph(poses, ef, et, meas, info, switch, priors, 0)
+    out, ms = {}, {}
+    for label, graphs in (("graph", True), ("eager", False), ("graph_again", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, chi2 = PG.optimize_dense(g, iters=12, graphs=graphs)
+        float(chi2)
+        ms[label] = (time.perf_counter() - t0) * 1e3
+        out[label] = res.poses[: len(ids)].cpu().numpy()
+    diff = float(np.abs(out["graph"] - out["eager"]).max())
+    row = {"slice": "rgbd_sessions", "dense_check": {
+        "nodes": len(ids), "padded": int(g.poses.shape[0]), "edges": len(ef), "lm_iters": 12,
+        "graph_ms": ms["graph_again"], "eager_ms": ms["eager"],
+        "first_graph_ms_with_capture": ms["graph"], "max_abs_diff_m": diff}}
+    print(json.dumps(row), flush=True)
+    if not (np.isfinite(out["graph"]).all() and diff <= 1e-3):
+        fail(f"optimize_dense: the captured LM differs from the eager one by {diff} m")
+    return row
+
+
+def run_sessions(path: str, mapping: tuple, keep_dir: str) -> tuple:
+    """The three sessions on the card (tools/rgbd_sessions.py) against the
+    store at ``path``: the mapping session is rgbd_mapping's full-width run
+    (``mapping``: its summary and K1 launches, held here to the sessions'
+    checks), then the resume and the localization once a seed of
+    LOCALIZATION_SEEDS on its own copy of the resumed store; the closed
+    mapping and resumed stores are copied into ``keep_dir``
+    (``mapping.db``, ``resumed.db``) for the map tools. Returns (K1's
+    launches in the resume and the localizations, the sessions' summaries
+    by name)."""
     dev = torch.device("cuda")
     total, frames = 0, 0
+    summaries = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "map.db")
-        sessions = rgbd_sessions.iter_sessions(path, dev, seed=LOCALIZATION_SEEDS[0])
-        runs = [(name, lambda: next(sessions)) for name in rgbd_sessions.SESSIONS]
+        seeds = os.path.join(tmp, "map.db")
+        sessions = rgbd_sessions.iter_sessions(path, dev, seed=LOCALIZATION_SEEDS[0],
+                                               sessions=("resume", "localization"))
+        runs = [("mapping", lambda: mapping)] + [
+            (name, lambda: (next(sessions), None)) for name in ("resume", "localization")]
         for s in LOCALIZATION_SEEDS[1:]:
-            runs.append(("localization", lambda s=s: next(rgbd_sessions.iter_sessions(
-                f"{path}.seed{s}", dev, seed=s, sessions=("localization",)))))
+            runs.append(("localization", lambda s=s: (next(rgbd_sessions.iter_sessions(
+                f"{seeds}.seed{s}", dev, seed=s, sessions=("localization",))), None)))
         localized = []
         for name, run_session in runs:
             K1.knn2.launches = 0
             t0 = time.perf_counter()
-            res = run_session()
-            launches = K1.knn2.launches
+            res, launches = run_session()
+            if launches is None:
+                launches = K1.knn2.launches
+            else:                      # counted in the rgbd_mapping phase
+                total -= launches
             run = res.pop("run")
             slam = run["slam"]
             mem = slam.memory
@@ -849,18 +962,25 @@ def run_sessions() -> int:
                     if not np.isfinite(v):
                         fail(f"{name}: statistic {k} = {v}")
             pcg_ms = sum(s["ms"] for s in res["pcg_solves"])
-            res.update(seconds=time.perf_counter() - t0, vocab_knn2_launches=launches,
+            res.update(vocab_knn2_launches=launches,
                        time_in_solves_ms={"pcg": pcg_ms, "dense": res["dense_solves"]["ms_total"],
                                           "process": float(np.sum(run["process_ms"]))})
+            if name != "mapping":                     # timed in the rgbd_mapping phase
+                res["seconds"] = time.perf_counter() - t0
             if name == "localization":
                 res["seed"] = LOCALIZATION_SEEDS[len(localized)]
                 localized.append(res["localized"])
             print(json.dumps({"slice": "rgbd_sessions", **res}), flush=True)
             check_session(res, launches, frames)
+            if name == "mapping":
+                check_dense_graph(slam)
+                shutil.copyfile(path, os.path.join(keep_dir, "mapping.db"))
             if name == "resume":
                 check_pcg_graph(slam)
                 for s in LOCALIZATION_SEEDS[1:]:      # the resumed store, closed
-                    shutil.copyfile(path, f"{path}.seed{s}")
+                    shutil.copyfile(path, f"{seeds}.seed{s}")
+                shutil.copyfile(path, os.path.join(keep_dir, "resumed.db"))
+            summaries.setdefault(name, res)
             if name != "localization":
                 frames += res["frames"]
             total += launches
@@ -872,7 +992,7 @@ def run_sessions() -> int:
         fail(f"localization: {np.mean(localized)} frames localized on average over seeds "
              f"{LOCALIZATION_SEEDS} ({localized}), JAX CPU lowest over seeds "
              f"{JAX_SESSIONS_MIN['localization'][1]}")
-    return total
+    return total, summaries
 
 
 # the engine's three scan stages, each one register_scans (K2) a call
@@ -1027,7 +1147,435 @@ def run_scan_slice() -> tuple:
     return tuple(int(x) for x in total)
 
 
+# ---------------------------------------------------------------- map tools
+
+# Same inputs on the card and the CPU (the stated tolerances): tsdf and
+# weight differ by more than 1e-5 on at most 0.1% of the voxels (a voxel
+# centre that projects within float32 rounding of a pixel boundary reads
+# the neighbouring depth pixel); a voxel whose sign differs between the two
+# volumes lies within 1e-3 of the zero crossing on both; surface nets of one
+# volume give the same vertices and faces on either device; given the same
+# scores the bake's face_camera is exact and its atlas within 1e-4
+# (index_add_ sums in another order); the whole texture_mesh agrees on
+# face_camera for 99.9% of the faces; bundle_adjust_large's poses within
+# 1e-4 of its CPU run and of the dense solve.
+MT_VOXEL_TOL, MT_VOXEL_SHARE, MT_FLIP_TSDF = 1e-5, 1e-3, 1e-3
+MT_ATLAS_TOL, MT_FACE_CAMERA_SHARE, MT_BA_TOL = 1e-4, 0.999, 1e-4
+# The full-width checks: detect_more_loop_closures at the tool's 1 m (each
+# accepted closure is one graph solve and one gate; many of the padded
+# subgraph solves run all 100 LM iterations, ROADMAP.md section 3), its
+# map ATE after at most 1.1 x before; 90% of the mesh's
+# vertices within two voxels of one of the hall's planes; texels of
+# observed faces correlated at least 0.8 with the hall's texture; the
+# reprocessed loops at least 90% of the mapping session's.
+# The global BA is held to its path, finite poses on SO(3) (1e-4), its two
+# anchor cameras where they were (1e-5 m), a lower cost, and a map ATE of
+# at most 1.1 x that of the twin's problem (the rotations kept as stored,
+# solved the same way on the same map) and at most RGBD_ATE_BOUND. Not to
+# 1.1 x its ATE before: the twin's objective (tracks of shared word ids
+# within 0.10 m) moves the map off the ground truth in this hall, in the
+# JAX package on the CPU too (scripts/jax_global_ba.py on the port's
+# stores, PERF.md); the ratio is printed.
+MT_RADIUS, MT_ATE_RATIO, MT_ON_PLANES, MT_TEXEL_CORR = 1.0, 1.1, 0.9, 0.8
+MT_BA_TWIN_RATIO = 1.1
+MT_SO3_TOL, MT_ANCHOR_TOL = 1e-4, 1e-5
+# Pose files print six decimals; in formats 1, 3 and 4 the rotation passes
+# a quaternion or Euler angles in float32, which hold only rotations: those
+# are held on the poses whose rotation is orthonormal within 1e-5 (a weak
+# frame's DLT rotation can stay off SO(3) in both packages), and counted.
+# TORO's Euler angles lose precision as the pitch nears +-90 degrees (the
+# cameras' frame reaches it: d pitch = d R20 / cos(pitch)), so format 3 is
+# held to the tolerance over max(|cos(pitch)|, 0.01).
+MT_POSE_FILE_TOL, MT_ORTHONORMAL = 1e-5, 1e-5
+# Meshes read back: the PLY prints 5 decimals, the OBJ 6 (and its UVs pass
+# through 1 - v in float32).
+MT_PLY_TOL, MT_OBJ_TOL = 1e-5, 2e-6
+
+
+def _sync():
+    torch.cuda.synchronize()
+
+
+def _timed(fn):
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ba_problem(Nc: int = 12, Np: int = 2000, seed: int = 0) -> BA.BAProblem:
+    """Cameras 8 cm apart along x looking at a cloud 5 m ahead, every point
+    seen by every camera, exact observations; the first two cameras fixed
+    at the truth, the others and the points perturbed (host float32)."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(Np, 3)) * 0.8 + [1.0, 0.0, 5.0]).astype(np.float32)
+    poses = np.tile(np.eye(3, 4, dtype=np.float32), (Nc, 1, 1))
+    poses[:, 0, 3] = -0.08 * np.arange(Nc)
+    ci = np.repeat(np.arange(Nc), Np)
+    pi = np.tile(np.arange(Np), Nc)
+    pc = pts[pi] + poses[ci][:, :, 3]
+    uv = (pc[:, :2] / pc[:, 2:3]).astype(np.float32)
+    noisy = poses.copy()
+    noisy[2:, :, 3] += 0.01 * rng.normal(size=(Nc - 2, 3)).astype(np.float32)
+    fixed = np.zeros(Nc, bool)
+    fixed[:2] = True
+    return BA.BAProblem(*(torch.from_numpy(x) for x in (
+        noisy, pts + 0.02 * rng.normal(size=pts.shape).astype(np.float32), ci, pi, uv,
+        np.ones(len(ci), bool), fixed)))
+
+
+def map_tools_same_inputs() -> dict:
+    """Part (a): the TSDF fusion, surface nets, texture bake and
+    bundle_adjust_large on the card and with device="cpu" on the same
+    inputs: 12 frames of the parity trajectory at 320x240."""
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    spec = rgbd_laps.sequence_spec("parity")
+    cam = CAMERA.CameraModel.make(spec["f"], spec["f"], *spec["c"], *spec["size"])
+    world = SYN.World(spec["world"], SYN.DEFAULT_WORLD.seed)
+    poses = spec["poses"][0:48:4]
+    frames = [SYN.render(p, cam, world, device=dev) for p in poses]
+    grays = [g for g, _ in frames]
+    depths = [d for _, d in frames]
+    lo, size, voxel = CLI.tsdf_box(np.stack([p[:, 3] for p in poses]),
+                                   [d.cpu().numpy() for d in depths], 0.05)
+    out, vols, ms = {}, {}, {}
+    for label, d in (("cuda", dev), ("cpu", cpu)):
+        vol = TSDF.TSDFVolume(lo, size, voxel=voxel, device=d)
+
+        def fuse(vol=vol, d=d):
+            for p, dep in zip(poses, depths):
+                vol.integrate(dep.to(d), p, cam)
+        _, ms[f"integrate_{label}"] = _timed(fuse)
+        vols[label] = vol
+    card, host = vols["cuda"], vols["cpu"]
+    for name in ("tsdf", "weight"):
+        diff = (getattr(card, name).cpu() - getattr(host, name)).abs()
+        share = float((diff > MT_VOXEL_TOL).float().mean())
+        out[f"{name}_share_beyond_tol"] = share
+        if share > MT_VOXEL_SHARE:
+            fail(f"map_tools: {name} differs by more than {MT_VOXEL_TOL} on {share:.2e} "
+                 "of the voxels between the card and the CPU")
+    known = (card.weight.cpu() >= 1) & (host.weight >= 1)
+    flip = known & ((card.tsdf.cpu() > 0) != (host.tsdf > 0))
+    far = flip & ((card.tsdf.cpu().abs() > MT_FLIP_TSDF) | (host.tsdf.abs() > MT_FLIP_TSDF))
+    out.update(sign_flips=int(flip.sum()), sign_flips_off_zero=int(far.sum()))
+    if int(far.sum()):
+        fail(f"map_tools: {int(far.sum())} voxels change sign between the card and the CPU "
+             f"at more than {MT_FLIP_TSDF} from the zero crossing")
+    (v_h, f_h), ms["surface_nets_cpu"] = _timed(lambda: TSDF.surface_nets(
+        host.tsdf, host.weight, lo, voxel))
+    (v_x, f_x), ms["surface_nets_cuda"] = _timed(lambda: TSDF.surface_nets(
+        host.tsdf.to(dev), host.weight.to(dev), lo, voxel))
+    if not (torch.equal(v_x.cpu(), v_h) and torch.equal(f_x.cpu(), f_h)):
+        fail("map_tools: surface nets of one volume differ between the card and the CPU")
+    v_c, f_c = card.extract_mesh()
+    out.update(vertices=int(v_h.shape[0]), faces=int(f_h.shape[0]),
+               faces_card_volume=int(f_c.shape[0]))
+    if f_h.shape[0] < 1000:
+        fail(f"map_tools: the parity frames' mesh has {f_h.shape[0]} faces")
+
+    host_in = (v_h, f_h, poses, cam, [g.cpu() for g in grays])
+    card_in = (v_h.to(dev), f_h.to(dev), poses, cam, grays)
+    scores, ms["scores_cpu"] = _timed(lambda: TEX.face_camera_scores(
+        *host_in[:4], depths=[d.cpu() for d in depths]))
+    scores_c, ms["scores_cuda"] = _timed(lambda: TEX.face_camera_scores(
+        *card_in[:4], depths=depths))
+    out["score_sign_differences"] = int(((scores_c.cpu() > 0) != (scores > 0)).sum())
+    bake_h, ms["bake_cpu"] = _timed(lambda: TEX.bake_face_atlas(*host_in, scores=scores))
+    bake_c, ms["bake_cuda"] = _timed(lambda: TEX.bake_face_atlas(*card_in, scores=scores.to(dev)))
+    atlas_diff = float((bake_c.atlas.cpu() - bake_h.atlas).abs().max())
+    out.update(atlas_px=int(bake_h.atlas.shape[0]), bake_atlas_max_abs_diff=atlas_diff,
+               faces_observed=float((bake_h.face_camera >= 0).float().mean()))
+    if not torch.equal(bake_c.face_camera.cpu(), bake_h.face_camera) or atlas_diff > MT_ATLAS_TOL:
+        fail(f"map_tools: the bake on the card differs: atlas {atlas_diff}, face_camera "
+             f"{int((bake_c.face_camera.cpu() != bake_h.face_camera).sum())} faces")
+    tm_h, ms["texture_mesh_cpu"] = _timed(lambda: TEX.texture_mesh(
+        *host_in, depths=[d.cpu() for d in depths]))
+    tm_c, ms["texture_mesh_cuda"] = _timed(lambda: TEX.texture_mesh(*card_in, depths=depths))
+    same = float((tm_c.face_camera.cpu() == tm_h.face_camera).float().mean())
+    out["texture_mesh_face_camera_equal"] = same
+    if same < MT_FACE_CAMERA_SHARE:
+        fail(f"map_tools: texture_mesh's face_camera agrees on {same:.4f} of the faces")
+
+    prob = ba_problem()
+    card_prob = BA.BAProblem(*(x.to(dev) for x in prob))
+    (large_c, cost_c), ms["ba_large_cuda"] = _timed(
+        lambda: BA.bundle_adjust_large(card_prob, iters=10, cg_iters=60))
+    (large_h, cost_h), ms["ba_large_cpu"] = _timed(
+        lambda: BA.bundle_adjust_large(prob, iters=10, cg_iters=60))
+    (dense_c, cost_d), ms["ba_dense_cuda"] = _timed(lambda: BA.bundle_adjust(card_prob, iters=10))
+    d_cpu = float((large_c.poses.cpu() - large_h.poses).abs().max())
+    d_dense = float((large_c.poses - dense_c.poses).abs().max())
+    out["ba"] = {"cameras": int(prob.poses.shape[0]), "points": int(prob.points.shape[0]),
+                 "observations": int(prob.uv.shape[0]), "cost_large": float(cost_c),
+                 "cost_dense": float(cost_d), "poses_vs_cpu": d_cpu, "poses_vs_dense": d_dense}
+    if not (d_cpu <= MT_BA_TOL and d_dense <= MT_BA_TOL):
+        fail(f"map_tools: bundle_adjust_large's poses differ by {d_cpu} from its CPU run and "
+             f"{d_dense} from the dense solve")
+    out["ms"] = ms
+    print(json.dumps({"slice": "map_tools", "same_inputs": out}), flush=True)
+    return out
+
+
+def _resume(path: str, cam, dev):
+    """(engine resumed on the store at ``path`` without a new session, the
+    store) at the sessions' sizes."""
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    spec = rgbd_laps.sequence_spec("full")
+    db = Database(path)
+    return Rtabmap.load(db, cam, Parameters(), node_capacity=spec["node_capacity"],
+                        words_per_frame=spec["max_kp"], new_session=False, device=dev), db
+
+
+def planes_of(points_w: torch.Tensor, half_extent) -> tuple:
+    """(distance to the nearest of the hall's six planes, its index 2 * axis
+    + (1 for the + side)) of world points (..., 3)."""
+    he = torch.tensor(half_extent, dtype=points_w.dtype, device=points_w.device)
+    d = torch.stack([(points_w[..., a] - s * he[a]).abs() for a in range(3) for s in (-1, 1)],
+                    dim=-1)
+    dist, k = d.min(dim=-1)
+    return dist, k
+
+
+def texel_truth(tm, R, t, world: "SYN.World"):
+    """(texels, the hall's texture there) of the observed faces: each texel's
+    point carried to the world, its value_noise on the nearest plane as
+    synthetic.render computes it."""
+    F = tm.faces.shape[0]
+    K = int(np.ceil(np.sqrt(F)))
+    texel = tm.atlas.shape[0] // K
+    dev = tm.atlas.device
+    obs = tm.face_camera >= 0
+    f = tm.faces[obs].long()
+    bary = torch.from_numpy(TEX._face_grid(texel)).to(dev)
+    v = tm.vertices
+    pts = (bary[None, :, 0:1] * v[f[:, 0]][:, None] + bary[None, :, 1:2] * v[f[:, 1]][:, None]
+           + bary[None, :, 2:3] * v[f[:, 2]][:, None])
+    pw = pts @ torch.as_tensor(R, dtype=torch.float32, device=dev).T + torch.as_tensor(
+        t, dtype=torch.float32, device=dev)
+    _, k = planes_of(pw, world.half_extent)
+    truth = torch.zeros(pw.shape[:-1], device=dev)
+    for plane in range(6):
+        axis, side = divmod(plane, 2)
+        a1, a2 = [a for a in range(3) if a != axis]
+        m = k == plane
+        truth[m] = SYN.value_noise(pw[..., a1][m] * 0.5, pw[..., a2][m] * 0.5,
+                                   seed=world.seed * 31 + axis * 2 + side)
+    texels = tm.atlas.reshape(K, texel, K, texel).permute(0, 2, 1, 3).reshape(K * K, -1)[:F]
+    return texels[obs], truth
+
+
+def run_map_tools(stores: str, sessions: dict) -> int:
+    """Part (a), then part (b): the store tools at full width on copies of
+    the rgbd_sessions stores. Returns K1's launches (the reprocess)."""
+    map_tools_same_inputs()
+    dev = torch.device("cuda")
+    cam_vals = rgbd_sessions.camera()
+    cam = CAMERA.CameraModel.make(*cam_vals)
+    cam_arg = ",".join(str(x) for x in cam_vals)
+    work = os.path.join(stores, "work")
+    os.makedirs(work, exist_ok=True)
+    mapping, resumed = (os.path.join(stores, n) for n in ("mapping.db", "resumed.db"))
+
+    def copy(src, name):
+        dst = os.path.join(work, name)
+        shutil.copyfile(src, dst)
+        return dst
+
+    db = Database(mapping, async_writes=False)
+    n_nodes, n_links = len(db.node_infos()), len(db.all_links())
+    stored_opt = db.load_admin()["optimized_poses"]
+    db.close()
+    rows = {"stored": {"nodes": n_nodes, "links": n_links}}
+
+    # reprocess: the stored nodes through process() again
+    K1.knn2.launches = 0
+    # the store's camera: the engine's close() wrote it under __camera__
+    slam, ms = _timed(lambda: CLI.main(["reprocess", copy(mapping, "re.db")]))
+    launches = K1.knn2.launches
+    hist = slam.stats_history
+    quantize = sum("TimingMem/Add new words/ms" in st.data for st in hist)
+    loops = sum(1 for st in hist if st.loop_closure_id > 0)
+    nodes = len(slam.memory.signatures)
+    rows["reprocess"] = {"nodes": nodes, "not_recreated": n_nodes - nodes, "loops": loops,
+                         "session_loops": sessions["mapping"]["loops"], "quantize_calls": quantize,
+                         "vocab_knn2_launches": launches, "ms": ms,
+                         "process_ms_median": float(np.median([st.get("Timing/Total/ms")
+                                                               for st in hist]))}
+    if slam.memory.vocab.slab.device.type != "cuda":
+        fail("reprocess: the vocabulary lies off the card")
+    if launches != quantize or launches == 0:
+        fail(f"reprocess: vocab_knn2 launched {launches} times for {quantize} quantize calls")
+    if nodes != n_nodes or loops < int(0.9 * sessions["mapping"]["loops"]):
+        fail(f"reprocess: {nodes} nodes of {n_nodes}, {loops} loops (the session's "
+             f"{sessions['mapping']['loops']})")
+    del slam
+
+    # more loop closures on the mapping store, with the store's camera
+    slam, db = _resume(copy(mapping, "detect.db"), cam, dev)
+    ate0, _ = rgbd_sessions.map_ate(slam)
+    n_solves = len(slam.solves)
+    added, ms = _timed(lambda: slam.detect_more_loop_closures(cluster_radius=MT_RADIUS))
+    ate1, _ = rgbd_sessions.map_ate(slam)
+    iters = [s[1] for s in slam.solves[n_solves:]]
+    rows["detect_more_loop_closures"] = {
+        "radius": MT_RADIUS, "added": added, "ate_before": ate0, "ate_after": ate1,
+        "solves": len(iters), "solve_iters_median": float(np.median(iters)) if iters else 0.0,
+        "solves_at_iteration_budget": sum(i >= slam.optimizer_iterations for i in iters),
+        "solve_ms_median": float(np.median([s[2] for s in slam.solves[n_solves:]]))
+        if iters else 0.0, "ms": ms}
+    db.close()
+    if not ate1 <= MT_ATE_RATIO * ate0:
+        fail(f"detect_more_loop_closures: map ATE {ate1:.4f} m after, {ate0:.4f} m before")
+
+    # the pose files, read back
+    errs = {}
+    ids = sorted(stored_opt)
+    rot_ok = {i: float(np.abs(stored_opt[i][:, :3].astype(np.float64).T
+                              @ stored_opt[i][:, :3] - np.eye(3)).max()) <= MT_ORTHONORMAL
+              for i in ids}
+    for fmt in range(5):
+        out = os.path.join(work, f"poses{fmt}.txt")
+        CLI.main(["export", mapping, out, str(fmt)])
+        back = import_poses(out, fmt)
+        keys = ids if fmt in (3, 4) else list(range(len(ids)))
+        if sorted(back) != keys:
+            fail(f"export format {fmt}: {len(back)} poses read back of {len(ids)}")
+        # the error over its tolerance, pose by pose
+        errs[fmt] = max(float(np.abs(back[k] - stored_opt[i]).max()) * (
+            max(abs(float(np.sqrt(max(0.0, 1.0 - float(stored_opt[i][2, 0]) ** 2)))), 0.01)
+            if fmt == 3 else 1.0) for k, i in zip(keys, ids) if fmt in (0, 2) or rot_ok[i])
+    rows["export"] = {"poses": len(ids), "max_err_by_format": errs,
+                      "rotations_off_so3": sum(not v for v in rot_ok.values())}
+    if max(errs.values()) > MT_POSE_FILE_TOL:
+        fail(f"export: poses read back differ by {errs}")
+
+    # recovery of a copy
+    rec_path = os.path.join(work, "recovered.db")
+    rec, ms = _timed(lambda: CLI.main(["recovery", copy(mapping, "damaged.db"), rec_path]))
+    db = Database(rec_path, async_writes=False)
+    rec_rows = (len(db.node_infos()), len(db.all_links()))
+    db.close()
+    rows["recovery"] = {**rec, "rows": rec_rows, "ms": ms}
+    if (rec["nodes"], rec["links"]) != (n_nodes, n_links) or rec_rows != (n_nodes, n_links):
+        fail(f"recovery: {rec} and {rec_rows} rows from {n_nodes} nodes, {n_links} links")
+    print(json.dumps({"slice": "map_tools", "mapping_store": rows}), flush=True)
+
+    # global bundle adjustment of the resumed store (two sessions)
+    rows = {}
+    slam, db = _resume(copy(resumed, "ba.db"), cam, dev)
+    R, t = RSC.map_to_world(slam)          # the stored optimized poses onto the ground truth
+    ate0, n_ate = rgbd_sessions.map_ate(slam)
+    before = slam.get_optimized_poses()
+    # the twin's problem on the same map: the rotations kept as stored
+    ids, _, prob = slam.global_ba_problem(orthonormalize=False)
+    out, _ = BA.bundle_adjust_large(prob, iters=10, huber=4.0 / cam.fx)
+    as_twin = dict(before)
+    as_twin.update(zip(ids, T.inverse(out.poses).cpu().numpy()))
+    gt_ids = [i for i in sorted(as_twin) if i >= 0 and (sg := slam.memory.get(i)) is not None
+              and sg.gt_pose is not None]
+    ate_twin = metrics.ate_rmse(np.stack([as_twin[i] for i in gt_ids]),
+                                np.stack([slam.memory.get(i).gt_pose for i in gt_ids]))
+    ok, ms = _timed(slam.global_bundle_adjustment)
+    stats = dict(slam.global_ba_stats or {})
+    ate1, _ = rgbd_sessions.map_ate(slam)
+    after = slam.get_optimized_poses()
+    new = np.stack(list(after.values()))
+    adjusted = sorted(i for i in after if (sg := slam.memory.get(i)) is not None
+                      and sg.word_ids is not None)
+    anchors = adjusted[:2]
+    off_so3 = max(float(np.abs(after[i][:, :3].astype(np.float64).T @ after[i][:, :3]
+                               - np.eye(3)).max()) for i in adjusted)
+    anchor_moved = max(float(np.abs(after[i][:, 3] - before[i][:, 3]).max()) for i in anchors)
+    stats.update(ok=ok, ms=ms, ate_before=ate0, ate_after=ate1, ate_ratio=ate1 / ate0,
+                 ate_after_rotations_as_stored=ate_twin, ate_nodes=n_ate,
+                 rotations_max_off_so3=off_so3, anchors_moved_m=anchor_moved)
+    if stats.get("path") != "bundle_adjust_large":
+        # a small problem: hold the implicit-Schur path on it directly
+        ids, n_tracks, prob = slam.global_ba_problem()
+        (_, cost), ms_large = _timed(lambda: BA.bundle_adjust_large(prob, huber=4.0 / cam.fx))
+        stats["bundle_adjust_large_direct"] = {"cost": float(cost), "ms": ms_large}
+        print(f"global BA: {len(ids)} x {n_tracks} stays under 600,000; "
+              "bundle_adjust_large run on the same problem directly", flush=True)
+        if not np.isfinite(float(cost)):
+            fail("global BA: bundle_adjust_large on the map's problem is not finite")
+    rows["global_bundle_adjustment"] = stats
+    db.close()
+    if not (ok and np.isfinite(new).all() and stats["cost_after"] < stats["cost_before"]
+            and off_so3 <= MT_SO3_TOL and anchor_moved <= MT_ANCHOR_TOL):
+        fail(f"global BA: {stats}")
+    if not (ate1 <= MT_BA_TWIN_RATIO * ate_twin and ate1 <= RGBD_ATE_BOUND):
+        fail(f"global BA: map ATE {ate1:.4f} m after, {ate0:.4f} m before, {ate_twin:.4f} m "
+             "with the rotations as stored")
+
+    # the cloud, the mesh and the textured mesh of the resumed store
+    half = rgbd_laps.FULL_WORLD
+    world = SYN.World(half, SYN.DEFAULT_WORLD.seed)
+    ply = os.path.join(work, "cloud.ply")
+    n_pts, ms = _timed(lambda: CLI.main(["export_cloud", resumed, ply, "--cam", cam_arg]))
+    rows["cloud"] = {"points": n_pts, "ms": ms}
+    if n_pts == 0 or MESH.read_ply_counts(ply)[0] != n_pts:
+        fail(f"export_cloud: {n_pts} points, the file holds {MESH.read_ply_counts(ply)}")
+    ply = os.path.join(work, "mesh.ply")
+    ex, ms = _timed(lambda: CLI.main(["export_cloud", resumed, ply, "--mesh",
+                                      "--cam", cam_arg]))
+    verts, faces = ex.pop("mesh")
+    n_faces = ex["faces"]
+    vw = verts @ torch.as_tensor(R, dtype=torch.float32, device=dev).T + torch.as_tensor(
+        t, dtype=torch.float32, device=dev)
+    dist, plane = planes_of(vw, half)
+    near = dist <= 2 * ex["voxel"]
+    names = [f"{s}{a}" for a in "xyz" for s in "-+"]
+    ex.update(ms_total=ms, on_planes=float(near.float().mean()), vertices_by_plane={
+        names[k]: int(((plane == k) & near).sum()) for k in range(6)})
+    rv, rf, _ = MESH.read_ply(ply)
+    ex["ply_read_back_equal"] = bool(np.array_equal(rf, faces.cpu().numpy())
+                                     and np.abs(rv - verts.cpu().numpy()).max() <= MT_PLY_TOL)
+    rows["mesh"] = ex
+    if n_faces == 0 or ex["on_planes"] < MT_ON_PLANES or not ex["ply_read_back_equal"]:
+        fail(f"export_cloud --mesh: {ex}")
+    obj = os.path.join(work, "mesh.obj")
+    tex, ms = _timed(lambda: CLI.main(["export_cloud", resumed, obj, "--mesh", "--texture",
+                                       "--cam", cam_arg]))
+    tm = tex.pop("mesh")
+    texels, truth = texel_truth(tm, R, t, world)
+    corr = float(np.corrcoef(texels.reshape(-1).cpu().numpy(),
+                             truth.reshape(-1).cpu().numpy())[0, 1])
+    v2, f2, uv2, atlas2 = TEX.read_textured_obj(obj)
+    atlas8 = (np.clip(tm.atlas.cpu().numpy(), 0, 1) * 255.0 + 0.5).astype(np.uint8)
+    tex.update(ms_total=ms, faces_observed_share=tex["faces_observed"] / max(tex["faces"], 1),
+               texel_truth_correlation=corr, obj_read_back_equal=bool(
+                   np.array_equal(f2, tm.faces.cpu().numpy()) and np.array_equal(atlas2, atlas8)
+                   and np.abs(v2 - tm.vertices.cpu().numpy()).max() <= MT_OBJ_TOL
+                   and np.abs(uv2 - tm.uvs.cpu().numpy()).max() <= MT_OBJ_TOL))
+    rows["textured_mesh"] = tex
+    print(json.dumps({"slice": "map_tools", "resumed_store": rows}), flush=True)
+    if corr < MT_TEXEL_CORR or not tex["obj_read_back_equal"]:
+        fail(f"export_cloud --texture: correlation {corr:.3f}, read back "
+             f"{tex['obj_read_back_equal']}")
+    return launches
+
+
+def keep_stripped(src: str, out_dir: str):
+    """Copy the store at ``src`` to ``out_dir/resumed_stripped.db`` without
+    its stored images and depth."""
+    import sqlite3
+
+    os.makedirs(out_dir, exist_ok=True)
+    dst = os.path.join(out_dir, "resumed_stripped.db")
+    shutil.copyfile(src, dst)
+    con = sqlite3.connect(dst)
+    con.execute("UPDATE Data SET image = NULL, depth = NULL")
+    con.commit()
+    con.execute("VACUUM")
+    con.close()
+    print(json.dumps({"kept_store": dst, "bytes": os.path.getsize(dst)}), flush=True)
+
+
 def main():
+    keep = sys.argv[sys.argv.index("--keep-store") + 1] if "--keep-store" in sys.argv else None
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1054,8 +1602,15 @@ def main():
     k2, k2c = phase("kernels_nn3d", check_nn3d)
     k1["launches"] = phase("bow_mapping", run_slice)
     k2["launches"], k2c["launches"] = phase("lidar_mapping", run_lidar_slices)
-    k1["launches"] += phase("rgbd_mapping", run_rgbd_slices)
-    k1["launches"] += phase("rgbd_sessions", run_sessions)
+    with tempfile.TemporaryDirectory() as stores:
+        path = os.path.join(stores, "map.db")
+        launches, mapping = phase("rgbd_mapping", lambda: run_rgbd_slices(path))
+        k1["launches"] += launches
+        launches, sessions = phase("rgbd_sessions", lambda: run_sessions(path, mapping, stores))
+        k1["launches"] += launches
+        if keep:
+            keep_stripped(os.path.join(stores, "resumed.db"), keep)
+        k1["launches"] += phase("map_tools", lambda: run_map_tools(stores, sessions))
     scan_k1, scan_k2, scan_k2c = phase("rgbd_scan", run_scan_slice)
     k1["launches"] += scan_k1
     k2["launches"] += scan_k2

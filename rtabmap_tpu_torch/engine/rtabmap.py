@@ -45,10 +45,19 @@ against the rolling odometry cache (``_localize_with_odom_cache``), and
 the loop threshold drops to ``RGBD/AggressiveLoopThr`` until a closure is
 in the cache. ``set_initial_pose`` seeds the map correction.
 
+The maintenance and query API works on a finished map (the store tools'
+path, ``tools/cli.py``): ``detect_more_loop_closures`` (registrations
+between nearby nodes, each accepted closure optimized and gated on its
+own), ``refine_links``, ``reject_last_loop_closure``, ``add_user_link``,
+``global_bundle_adjustment`` (tracks from shared word ids, two anchored
+cameras; ``optim/ba.bundle_adjust_large`` past 600,000 cameras x tracks),
+the getters, ``export_poses``, ``get_signature_copy`` and ``get_3d_map``.
+
 Raised as not yet ported, naming the slice that brings them: multi-device
 meshes, landmarks, learned-descriptor inputs (and with them the learned
 matcher of the epipolar check, ``Vis/CorNNType`` 6) and GPS priors. Not
-there yet: the path planner and the maintenance API.
+there yet: the path planner, labels and user data, ``delete_last_location``,
+``reset_memory`` and the dot-graph, prediction and log-file dumps.
 """
 from __future__ import annotations
 
@@ -215,6 +224,8 @@ class Rtabmap:
         self.stats_history: List[Statistics] = []
         # (padded nodes, LM iterations, host ms) of every graph solve
         self.solves: List[Tuple[int, int, float]] = []
+        # the last global_bundle_adjustment's problem, path and costs
+        self.global_ba_stats: Optional[Dict] = None
 
     @classmethod
     def load(cls, db, cam: C.CameraModel, params: Optional[Parameters] = None,
@@ -264,15 +275,20 @@ class Rtabmap:
 
     def close(self, map2d=None, opt_cloud=None, opt_mesh=None):
         """Checkpoint the map into the store (reference: Memory::close and
-        saveOptimizedPoses): the WM and STM signatures, the parameters,
-        the optimized poses, the vocabulary and any derived products
-        given; then wait for the writes."""
+        saveOptimizedPoses): the WM and STM signatures, the parameters
+        with the camera under ``__camera__`` (fx, fy, cx, cy, width,
+        height; the store tools' ``reprocess`` reads it), the optimized
+        poses, the vocabulary and any derived products given; then wait
+        for the writes."""
         db = self.memory.db
         if db is None:
             return
         for i in list(self.memory.wm) + list(self.memory.stm):
             db.save_signature(self.memory.get(i))
-        db.save_admin(params=self.params.overrides(), optimized_poses=self.optimized_poses,
+        c = self.cam
+        params = {**self.params.overrides(),
+                  "__camera__": [c.fx, c.fy, c.cx, c.cy, c.width, c.height]}
+        db.save_admin(params=params, optimized_poses=self.optimized_poses,
                       vocab=self.memory.vocab, map2d=map2d, opt_cloud=opt_cloud,
                       opt_mesh=opt_mesh)
         db.flush()
@@ -1613,3 +1629,283 @@ class Rtabmap:
 
     def get_optimized_poses(self) -> Dict[int, np.ndarray]:
         return dict(self.optimized_poses)
+
+    def get_graph(self):
+        return self.memory.get_constraints(session_only=False)
+
+    def get_wm(self) -> List[int]:
+        return list(self.memory.wm)
+
+    def get_stm(self) -> List[int]:
+        return list(self.memory.stm)
+
+    def get_wm_size(self) -> int:
+        return len(self.memory.wm)
+
+    def get_stm_size(self) -> int:
+        return len(self.memory.stm)
+
+    def is_in_stm(self, node_id: int) -> bool:
+        return node_id in self.memory.stm
+
+    def get_weights(self) -> Dict[int, int]:
+        return {i: self.memory.get(i).weight for i in self.memory.wm + self.memory.stm}
+
+    def get_total_mem_size(self) -> int:
+        return len(self.memory.signatures)
+
+    def get_pose(self, node_id: int):
+        if node_id in self.optimized_poses:
+            return np.asarray(self.optimized_poses[node_id])
+        s = self.memory.get(node_id)
+        return None if s is None else np.asarray(s.pose)
+
+    def get_loop_closure_id(self) -> int:
+        return self.loop_closure_id
+
+    def get_map_correction(self) -> np.ndarray:
+        return np.asarray(self.map_correction)
+
+    def export_poses(self, path: str, fmt: int = 0, optimized: bool = True) -> int:
+        """Write the trajectory in one of the reference's five formats
+        (Rtabmap::exportPoses); returns the number of poses."""
+        from rtabmap_tpu_torch.tools.export_poses import export_poses
+
+        poses = (self.get_optimized_poses() if optimized else
+                 {i: self.memory.get(i).pose for i in self.memory.wm + self.memory.stm})
+        export_poses(path, fmt, poses)
+        return len(poses)
+
+    def get_signature_copy(self, node_id: int, with_words: bool = True,
+                           with_scan: bool = False, with_user_data: bool = False,
+                           with_grid: bool = False, with_global_descriptors: bool = False):
+        """A detached copy of a node, loaded from the store if it is not in
+        memory (Rtabmap::getSignatureCopy)."""
+        import copy
+
+        s = self.memory.get(node_id)
+        if s is None and self.memory.db is not None:
+            s = self.memory.db.load_signature(node_id)
+        if s is None:
+            return None
+        out = copy.copy(s)
+        out.links = dict(s.links)
+        if not with_words:
+            out.word_ids = out.desc = out.uv = out.pts3d = out.valid3d = None
+        if not with_scan:
+            out.scan = None
+        if not with_user_data:
+            out.user_data = None
+        if not with_grid:
+            out.grid = None
+        if not with_global_descriptors:
+            out.global_desc = None
+        return out
+
+    def get_3d_map(self, optimized: bool = True, global_map: bool = True):
+        """(signatures, poses, constraints) of the current graph
+        (Rtabmap::get3DMap)."""
+        poses, links = self.memory.get_constraints(session_only=not global_map)
+        if optimized:
+            poses = {i: self.optimized_poses.get(i, p) for i, p in poses.items()}
+        sigs = {i: self.memory.get(i) for i in poses}
+        return sigs, {i: np.asarray(p) for i, p in poses.items()}, links
+
+    # ------------------------------------------------------- maintenance ops
+    def _register(self, from_id: int, to_id: int, guess=None):
+        return self.memory.compute_transform(from_id, to_id, self.cam, self.generator,
+                                             guess=guess, min_inliers=self.min_inliers)
+
+    def detect_more_loop_closures(self, cluster_radius: float = 1.0,
+                                  cluster_angle: float = 0.0, iterations: int = 1) -> int:
+        """Offline: try a closure between every pair of nearby nodes not
+        linked yet and re-optimize after each one accepted, gating it on
+        its own (Rtabmap::detectMoreLoopClosures). Returns the closures
+        added."""
+        from rtabmap_tpu_torch.utils import graph as G
+
+        added_total = 0
+        for _ in range(iterations):
+            added = 0
+            ids = [i for i in (self.memory.wm + self.memory.stm)
+                   if self.memory.get(i) is not None]
+            poses = {i: self.optimized_poses.get(i, self.memory.get(i).pose) for i in ids}
+            for i in ids:
+                near = G.find_nearest_nodes(poses[i], poses, radius=cluster_radius,
+                                            angle=cluster_angle)
+                for j, _d in near:
+                    if j <= i or j in self.memory.get(i).links:
+                        continue
+                    guess = T.np_relative(poses[i], poses[j]).astype(np.float32)
+                    t_ab, cov, _inl = self._register(i, j, guess)
+                    if t_ab is None:
+                        continue
+                    lk = Link(i, j, LINK_USER_CLOSURE, t_ab, info_from_cov(cov))
+                    self.memory.add_link(lk)
+                    st = Statistics()
+                    self._optimize(st, [lk])
+                    if st.get("Loop/Rejected by optimization/"):
+                        continue
+                    added += 1
+            added_total += added
+            if not added:
+                break
+        return added_total
+
+    def refine_links(self) -> int:
+        """Re-register every link from its stored transform and keep the
+        new transform (Rtabmap::refineLinks); re-optimizes once."""
+        refined = 0
+        seen = set()
+        for sid in list(self.memory.signatures):
+            sig = self.memory.get(sid)
+            if sig is None or sig.desc is None:
+                continue
+            for j, lk in list(sig.links.items()):
+                if (j, sid) in seen or (sid, j) in seen:
+                    continue
+                seen.add((sid, j))
+                other = self.memory.get(j)
+                if other is None or other.desc is None:
+                    continue
+                t_ab, cov, _inl = self._register(lk.from_id, lk.to_id, lk.transform)
+                if t_ab is not None:
+                    self.memory.add_link(Link(lk.from_id, lk.to_id, lk.type, t_ab,
+                                              info_from_cov(cov)))
+                    refined += 1
+        if refined:
+            self._optimize(Statistics(), [])
+        return refined
+
+    def reject_last_loop_closure(self) -> bool:
+        """Remove the newest closure link (by its larger node id) and
+        re-optimize (Rtabmap::rejectLastLoopClosure)."""
+        best = None
+        for sig in self.memory.signatures.values():
+            for lk in sig.links.values():
+                if lk.type in CLOSURE_TYPES:
+                    key = max(lk.from_id, lk.to_id)
+                    if best is None or key > best[0]:
+                        best = (key, lk.from_id, lk.to_id)
+        if best is None:
+            return False
+        self.memory.remove_link(best[1], best[2])
+        self.loop_closure_id = 0
+        self._optimize(Statistics(), [])
+        return True
+
+    def add_user_link(self, from_id: int, to_id: int, transform=None) -> bool:
+        """A user closure (Rtabmap::addLink): registered when no transform
+        is given, then optimized."""
+        if transform is None:
+            t_ab, cov, _ = self._register(from_id, to_id)
+            if t_ab is None:
+                return False
+            info = info_from_cov(cov)
+        else:
+            t_ab = np.asarray(transform, np.float32)
+            info = np.eye(6, dtype=np.float32)
+        lk = Link(from_id, to_id, LINK_USER_CLOSURE, t_ab, info)
+        self.memory.add_link(lk)
+        self._optimize(Statistics(), [lk])
+        return True
+
+    def global_bundle_adjustment(self, iters: int = 10) -> bool:
+        """Bundle adjustment of every node with words and an optimized pose
+        (Rtabmap::globalBundleAdjustment): a track is a word seen once in
+        each of two or more nodes whose world points agree within 0.10 m,
+        started at their mean; the first two cameras are fixed (frame and
+        scale gauge). The dense Schur solve up to 600,000 cameras x tracks,
+        ``bundle_adjust_large`` past it. The poses' rotations are projected
+        onto SO(3) first (``global_ba_problem``). ``self.global_ba_stats``
+        keeps the problem's size, the path and the costs."""
+        from rtabmap_tpu_torch.optim import ba as BA
+
+        built = self.global_ba_problem()
+        if built is None:
+            return False
+        ids, n_tracks, prob = built
+        fx = self.cam.fx
+        # the dense Schur solve while its (Nc,Np,6,3) cross term is small,
+        # the implicit Schur-CG once it would not be
+        large = len(ids) * n_tracks > 600_000
+        solve = BA.bundle_adjust_large if large else BA.bundle_adjust
+        cost0 = float(BA._cost(prob, prob.poses, prob.points, 4.0 / fx))
+        out, cost = solve(prob, iters=iters, huber=4.0 / fx)
+        new = to_numpy(T.inverse(out.poses))
+        self.global_ba_stats = {
+            "cameras": len(ids), "tracks": n_tracks, "observations": int(prob.uv.shape[0]),
+            "cameras_x_tracks": len(ids) * n_tracks,
+            "path": "bundle_adjust_large" if large else "bundle_adjust",
+            "cost_before": cost0, "cost_after": float(cost)}
+        if not np.isfinite(new).all():
+            return False
+        for k, i in enumerate(ids):
+            self.optimized_poses[i] = new[k]
+        return True
+
+    def global_ba_problem(self, track_tolerance: float = 0.10, orthonormalize: bool = True):
+        """The global bundle adjustment's problem: (node ids, tracks,
+        ``BAProblem`` of world-to-camera poses and normalized observations
+        on the engine's device), or None when there are fewer than two
+        nodes or ten tracks. A track's world points must agree within
+        ``track_tolerance`` (m) of their mean (the twin's 0.10).
+        ``orthonormalize=False`` keeps the rotations as they are, as the
+        twin does (the problem to hold the port's against)."""
+        from collections import defaultdict
+
+        from rtabmap_tpu_torch.optim import ba as BA
+
+        ids = [i for i in sorted(self.memory.signatures)
+               if (s := self.memory.get(i)) is not None and s.word_ids is not None
+               and i in self.optimized_poses]
+        if len(ids) < 2:
+            return None
+        dev = self.device
+        # A map's optimized rotations can sit off SO(3) (a weak frame's DLT
+        # odometry rotation is, and the map corrections compose it on), and
+        # the inverse by the transpose then moves a camera's position by as
+        # much: project each rotation onto SO(3) first. (The twin inverts
+        # the poses as they are.)
+        pose_t = torch.from_numpy(np.stack([
+            np.asarray(self.optimized_poses[i], np.float32) for i in ids])).to(dev)
+        if orthonormalize:
+            pose_t = T.orthonormalize(pose_t)
+        pts_t = torch.from_numpy(np.stack([np.asarray(self.memory.get(i).pts3d, np.float32)
+                                           for i in ids])).to(dev)
+        world_all = to_numpy(T.apply(pose_t, pts_t))                 # (N,K,3)
+        tracks = defaultdict(list)            # word -> [(camera, uv, world point)]
+        for k_cam, i in enumerate(ids):
+            s = self.memory.get(i)
+            wids = np.asarray(s.word_ids)
+            uniq, counts = np.unique(wids[wids >= 0], return_counts=True)
+            keep = (wids >= 0) & ~np.isin(wids, uniq[counts > 1]) & np.asarray(s.valid3d, bool)
+            for k in np.flatnonzero(keep):
+                tracks[int(wids[k])].append((k_cam, s.uv[k], world_all[k_cam, k]))
+
+        # word ids alias distinct points (quantization): keep the tracks
+        # whose world points agree metrically
+        def consistent(obs):
+            pts = np.stack([o[2] for o in obs])
+            return np.linalg.norm(pts - pts.mean(0), axis=1).max() < track_tolerance
+
+        tracks = {w: obs for w, obs in tracks.items() if len(obs) >= 2 and consistent(obs)}
+        if len(tracks) < 10:
+            return None
+        cam_idx, pt_idx, uvn, pts0 = [], [], [], []
+        fx, fy, cx, cy = self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy
+        for p, obs in enumerate(tracks.values()):
+            pts0.append(np.mean([o[2] for o in obs], axis=0))
+            for ck, uv, _ in obs:
+                cam_idx.append(ck)
+                pt_idx.append(p)
+                uvn.append([(uv[0] - cx) / fx, (uv[1] - cy) / fy])
+        fixed = torch.zeros(len(ids), dtype=torch.bool, device=dev)
+        fixed[:2] = True
+        prob = BA.BAProblem(
+            poses=T.inverse(pose_t), points=torch.from_numpy(np.stack(pts0)).to(dev),
+            cam_idx=torch.tensor(cam_idx, dtype=torch.int64, device=dev),
+            pt_idx=torch.tensor(pt_idx, dtype=torch.int64, device=dev),
+            uv=torch.from_numpy(np.asarray(uvn, np.float32)).to(dev),
+            valid=torch.ones(len(cam_idx), dtype=torch.bool, device=dev), fixed_cams=fixed)
+        return ids, len(tracks), prob

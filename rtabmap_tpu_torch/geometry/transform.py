@@ -1,7 +1,7 @@
 """SE(3) / SO(3) batched geometry and the host ``np_*`` helpers.
 
-Port of ``rtabmap_tpu/geometry/transform.py`` (minus the quaternion and
-Euler conversions, which the ported paths do not reach). A pose is a
+Port of ``rtabmap_tpu/geometry/transform.py``, with the quaternion and
+Euler conversions the pose files use. A pose is a
 ``(..., 3, 4)`` tensor ``[R | t]``, batch dims leading. Tangent vectors are
 ``(..., 6)`` ``[rho(3), phi(3)]``, translation first. The functions are
 pure (no in-place ops), so ``torch.func.jacfwd``/``vmap`` go through them.
@@ -186,6 +186,92 @@ def rotation_angle(T: torch.Tensor) -> torch.Tensor:
     sin_t = 0.5 * torch.linalg.norm(vee, dim=-1)
     cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
     return torch.atan2(sin_t, cos_t)
+
+
+def translation_norm(T: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.norm(translation(T), dim=-1)
+
+
+def is_identity(T: torch.Tensor, tol: float = 1e-6) -> torch.Tensor:
+    return (translation_norm(T) < tol) & (rotation_angle(T) < tol)
+
+
+def to_matrix4(T: torch.Tensor) -> torch.Tensor:
+    """(...,3,4) -> (...,4,4) homogeneous."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype, device=T.device)
+    return torch.cat([T, bottom.expand(*T.shape[:-2], 1, 4)], dim=-2)
+
+
+def interpolate(A: torch.Tensor, B: torch.Tensor, alpha) -> torch.Tensor:
+    """Pose slerp + lerp: A..B at fraction ``alpha`` (broadcastable)."""
+    xi = se3_log(relative(A, B))
+    a = torch.as_tensor(alpha, dtype=xi.dtype, device=xi.device)
+    return compose(A, se3_exp(xi * a[..., None]))
+
+
+def to_quaternion(T: torch.Tensor) -> torch.Tensor:
+    """(...,3,4) -> (...,4) quaternion [x,y,z,w]: of the four constructions
+    the one with the largest pivot (first on ties, as ``argmax``)."""
+    R = rotation(T)
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        q = torch.sqrt(torch.clamp_min(x, _EPS)) * 0.5
+        return q, 0.25 / torch.clamp_min(q, _EPS)
+
+    qw0, s0 = half_sqrt(1.0 + tr)
+    c0 = torch.stack([(m21 - m12) * s0, (m02 - m20) * s0, (m10 - m01) * s0, qw0], -1)
+    qx1, s1 = half_sqrt(1.0 + m00 - m11 - m22)
+    c1 = torch.stack([qx1, (m01 + m10) * s1, (m02 + m20) * s1, (m21 - m12) * s1], -1)
+    qy2, s2 = half_sqrt(1.0 - m00 + m11 - m22)
+    c2 = torch.stack([(m01 + m10) * s2, qy2, (m12 + m21) * s2, (m02 - m20) * s2], -1)
+    qz3, s3 = half_sqrt(1.0 - m00 - m11 + m22)
+    c3 = torch.stack([(m02 + m20) * s3, (m12 + m21) * s3, qz3, (m10 - m01) * s3], -1)
+    pivots = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], -1)
+    idx = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)                   # (...,4,4)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    return q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True), _EPS)
+
+
+def from_quaternion(q: torch.Tensor, t: torch.Tensor = None) -> torch.Tensor:
+    """Quaternion [x,y,z,w] (and a translation) -> (...,3,4)."""
+    q = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True), _EPS)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+    if t is None:
+        t = torch.zeros((*q.shape[:-1], 3), dtype=q.dtype, device=q.device)
+    return from_rt(R, t)
+
+
+def from_xyzrpy(xyzrpy: torch.Tensor) -> torch.Tensor:
+    """(...,6) [x,y,z,roll,pitch,yaw] -> (...,3,4), ZYX Euler angles."""
+    x, y, z = xyzrpy[..., 0], xyzrpy[..., 1], xyzrpy[..., 2]
+    r, p, yw = xyzrpy[..., 3], xyzrpy[..., 4], xyzrpy[..., 5]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(yw), torch.sin(yw)
+    R = torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], -1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], -1),
+        torch.stack([-sp, cp * sr, cp * cr], -1),
+    ], dim=-2)
+    return from_rt(R, torch.stack([x, y, z], dim=-1))
+
+
+def to_xyzrpy(T: torch.Tensor) -> torch.Tensor:
+    R, t = rotation(T), translation(T)
+    p = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    r = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.cat([t, torch.stack([r, p, yw], dim=-1)], dim=-1)
 
 
 # Host numpy forms for single (3,4) poses: per-tick pose bookkeeping stays

@@ -108,6 +108,29 @@ def sample_at(img: torch.Tensor, uv: torch.Tensor, pad_value: float = 0.0) -> to
     return torch.where(ok, z, torch.full_like(z, pad_value))
 
 
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:
+    """Sample (...,H,W) at continuous pixel coords uv (...,N,2) -> (...,N):
+    four taps, each out-of-image tap reading ``pad_value``, gathers at
+    clipped indices (the JAX twin's ``bilinear_sample``)."""
+    H, W = img.shape[-2:]
+    u, v = uv[..., 0], uv[..., 1]
+    u0, v0 = torch.floor(u), torch.floor(v)
+    du, dv = u - u0, v - v0
+    u0i, v0i = u0.long(), v0.long()
+    flat = img.reshape(*img.shape[:-2], H * W)
+
+    def tap(vi, ui):
+        idx = vi.clamp(0, H - 1) * W + ui.clamp(0, W - 1)
+        val = torch.gather(flat, -1, idx.reshape(*idx.shape[:-1], -1)).reshape(vi.shape)
+        ok = (vi >= 0) & (vi < H) & (ui >= 0) & (ui < W)
+        return torch.where(ok, val, torch.full_like(val, pad_value))
+
+    return (tap(v0i, u0i) * (1 - du) * (1 - dv)
+            + tap(v0i, u0i + 1) * du * (1 - dv)
+            + tap(v0i + 1, u0i) * (1 - du) * dv
+            + tap(v0i + 1, u0i + 1) * du * dv)
+
+
 def max_pool_same(img: torch.Tensor, size: int) -> torch.Tensor:
     """Max filter with 'same' (-inf) padding on (...,H,W) — used for NMS."""
     batch = img.shape[:-2]

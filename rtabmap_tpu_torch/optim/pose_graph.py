@@ -14,7 +14,9 @@ objective and drive the DCS anneal by the count of accepted steps; the
 iterations are Python loops of device operations with no host sync
 (acceptance is a ``torch.where``). On the card the fixed-length CG loop of
 a shape bucket is captured once in a CUDA graph and replayed: one replay
-a step where the eager loop launches about 19 operations an iteration.
+a step where the eager loop launches about 19 operations an iteration;
+so are the dense LM's iterations of a call, one replay where the eager
+loop launches some hundreds of small operations an iteration.
 ``solve_diagnostics`` gives the engine's post-solve edge statistics and
 ``optimize_poses_dict`` the tool-side solve over id -> pose dicts.
 """
@@ -250,7 +252,8 @@ def _dcs_phi0(g: PoseGraph, switch_mask, dcs_phi: float):
     sw = switch_mask & g.edge_valid & (chi0_e > dcs_phi)
     n_sw = sw.sum()
     vals = torch.sort(torch.where(sw, chi0_e, float("inf"))).values
-    med = vals[torch.clamp((n_sw - 1) // 2, 0, vals.shape[0] - 1)]
+    # gather, not a 0-dim tensor index (that reads the index on the host)
+    med = vals.gather(0, torch.clamp((n_sw - 1) // 2, 0, vals.shape[0] - 1).reshape(1))[0]
     med = torch.where(n_sw > 0, med, torch.full_like(med, dcs_phi))
     return torch.clamp_min(2.0 * med, dcs_phi)
 
@@ -292,18 +295,19 @@ def _assemble_dense(g: PoseGraph, r, Ji, Jj, w, damping: float):
                           ((rows_f, rows_t), Hij),
                           ((rows_t, rows_f), Hij.transpose(-1, -2)),
                           ((rows_t, rows_t), torch.einsum("eil,elj->eij", JjT_O, Jj))):
-        H.index_put_((ri.expand(blk.shape), ci.transpose(1, 2).expand(blk.shape)),
-                     blk, accumulate=True)
+        # scatter-add the 6x6 blocks through flat indices (no sort, no sync)
+        H.view(-1).index_add_(0, (ri * (6 * N) + ci.transpose(1, 2)).reshape(-1),
+                              blk.reshape(-1))
     b = torch.zeros((N, 6), dtype=torch.float32, device=dev)
     b.index_add_(0, g.edges_from, torch.einsum("eil,el->ei", JiT_O, r))
     b.index_add_(0, g.edges_to, torch.einsum("eil,el->ei", JjT_O, r))
     if g.priors_idx.shape[0] > 0:   # unary GPS / gravity / pose priors
         _, Hp, bp = _prior_blocks(g, g.poses)
         rows_p = (g.priors_idx[:, None] * 6 + six)[:, :, None]
-        H.index_put_((rows_p.expand(Hp.shape), rows_p.transpose(1, 2).expand(Hp.shape)),
-                     Hp, accumulate=True)
+        H.view(-1).index_add_(0, (rows_p * (6 * N) + rows_p.transpose(1, 2)).reshape(-1),
+                              Hp.reshape(-1))
         b.index_add_(0, g.priors_idx, bp)
-    root_mask = torch.nn.functional.one_hot(torch.tensor(g.root, device=dev), N).float()
+    root_mask = (torch.arange(N, device=dev) == g.root).float()
     fix = root_mask + (~g.node_valid).float()
     diag_boost = fix.repeat_interleave(6) * 1e8 + damping
     return H + torch.diag(diag_boost + 1e-8), b.reshape(6 * N)
@@ -312,15 +316,69 @@ def _assemble_dense(g: PoseGraph, r, Ji, Jj, w, damping: float):
 def optimize_dense(g: PoseGraph, iters: int = 20, damping: float = 1e-4,
                    robust: bool = False, huber_delta: float = 1.0,
                    switch_mask: Optional[torch.Tensor] = None,
-                   dcs_phi: float = DCS_PHI_DEFAULT) -> Tuple[PoseGraph, torch.Tensor]:
+                   dcs_phi: float = DCS_PHI_DEFAULT,
+                   graphs: bool = True) -> Tuple[PoseGraph, torch.Tensor]:
     """Levenberg-Marquardt with a dense Cholesky, for graphs up to a few
     hundred nodes: scale-invariant damping (lambda diag H); a step that
     raises the robust objective or is not finite (a float32 Cholesky
-    breakdown) is rejected and lambda raised. Returns (graph, chi2)."""
+    breakdown) is rejected and lambda raised. On a CUDA device the
+    ``iters`` iterations of a shape bucket run as one captured graph
+    (``graphs=False``: eagerly, the loop the graph is held to). Returns
+    (graph, chi2)."""
+    opts = (iters, damping, robust, huber_delta, dcs_phi)
+    if g.poses.device.type != "cuda" or not graphs:
+        return _optimize_dense(g, switch_mask, *opts)
+    key = ((g.poses.device, g.root, switch_mask is None) + opts
+           + tuple(tuple(t.shape) for t in _graph_tensors(g)))
+    cap = _DENSE_GRAPHS.get(key)
+    if cap is None:
+        cap = _DENSE_GRAPHS[key] = _CapturedDense(g, switch_mask, opts)
+    return cap(g, switch_mask)
+
+
+def _graph_tensors(g: PoseGraph):
+    return tuple(v for v in g if isinstance(v, torch.Tensor))
+
+
+class _CapturedDense:
+    """``_optimize_dense`` of one shape bucket and option set captured in a
+    CUDA graph: the graph's tensors (and the switch mask) are copied into
+    static buffers, the graph is replayed, the poses and chi2 are read
+    from its static outputs."""
+
+    def __init__(self, g: PoseGraph, switch_mask, opts):
+        self.g = g._replace(**{k: v.clone() for k, v in g._asdict().items()
+                               if isinstance(v, torch.Tensor)})
+        self.switch = None if switch_mask is None else switch_mask.clone()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):   # warm-up (handles, workspaces) outside the capture
+            _optimize_dense(self.g, self.switch, 1, *opts[1:])
+        torch.cuda.current_stream().wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out, self.chi2 = _optimize_dense(self.g, self.switch, *opts)
+
+    def __call__(self, g: PoseGraph, switch_mask):
+        for dst, src in zip(_graph_tensors(self.g), _graph_tensors(g)):
+            dst.copy_(src)
+        if switch_mask is not None:
+            self.switch.copy_(switch_mask)
+        self.graph.replay()
+        return g._replace(poses=self.out.poses.clone()), self.chi2.clone()
+
+
+# Captured dense LM graphs by (device, root, options, shapes): like _CG_GRAPHS,
+# a few shape buckets a process.
+_DENSE_GRAPHS: Dict[tuple, _CapturedDense] = {}
+
+
+def _optimize_dense(g: PoseGraph, switch_mask, iters: int, damping: float, robust: bool,
+                    huber_delta: float, dcs_phi: float) -> Tuple[PoseGraph, torch.Tensor]:
     N = g.poses.shape[0]
     dev = g.poses.device
     poses = g.poses
-    lam = torch.tensor(damping, dtype=torch.float32, device=dev)
+    lam = torch.full((), damping, dtype=torch.float32, device=dev)
     n_acc = torch.zeros((), dtype=torch.float32, device=dev)
     phi0 = _dcs_phi0(g, switch_mask, dcs_phi) if switch_mask is not None else None
     cur = None
@@ -357,21 +415,48 @@ def optimize_dense(g: PoseGraph, iters: int = 20, damping: float = 1e-4,
     return out, graph_chi2(out)
 
 
-def _hx_product(Jc, info_w, idx2, node_blocks, x):
+def _sum_plan(idx: torch.Tensor, valid: torch.Tensor, N: int) -> torch.Tensor:
+    """(N, D) positions in ``idx`` of each node's valid terms, in order,
+    padded with ``len(idx)`` (a zero row for ``_plan_sum``); D is the
+    largest count rounded up to a power of two. Summing a node's terms
+    along its row fixes their order on any device, where ``index_add_``
+    on the card adds them by atomics in whatever order they land, and so
+    makes the PCG step reproducible (its captured CUDA graph and the eager
+    loop give the same poses). One host sync (D)."""
+    n, dev = idx.shape[0], idx.device
+    pos = torch.nonzero(valid)[:, 0]
+    node = idx[pos]
+    order = torch.argsort(node, stable=True)
+    pos, node = pos[order], node[order]
+    counts = torch.bincount(node, minlength=N)
+    D = 1 << max(int(counts.max()) - 1, 0).bit_length() if node.numel() else 1
+    rank = torch.arange(node.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[node]
+    plan = torch.full((N, D), n, dtype=torch.int64, device=dev)
+    plan[node, rank] = pos
+    return plan
+
+
+def _plan_sum(plan: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """(N, ...) sums of ``terms`` (n, ...) along the rows of ``_sum_plan``."""
+    return torch.cat([terms, terms.new_zeros((1,) + terms.shape[1:])])[plan].sum(1)
+
+
+def _hx_product(Jc, info_w, idx2, plan2, node_blocks, x):
     """Matrix-free H @ x (x (N,6)) by a gather and a scatter over the edges:
     y_e = Ji x_from + Jj x_to (``Jc`` (E,6,12) is [Ji Jj], ``idx2`` (2E,)
-    each edge's from and to indices in turn), then Jc^T Omega y_e scattered
-    back to both nodes, plus the per-node blocks (damping, gauge clamp,
+    each edge's from and to indices in turn), then Jc^T Omega y_e summed
+    back to both nodes along ``plan2`` (``_sum_plan`` of ``idx2`` over the
+    valid edges), plus the per-node blocks (damping, gauge clamp,
     priors). As in the twin, Omega multiplies y after the two Jacobian
     products have cancelled: an edge block Jc^T Omega Jc formed first would
     cancel at the scale of Omega (1e8 on some odometry edges) in float32."""
     E = Jc.shape[0]
     y = info_w @ (Jc @ x[idx2].reshape(E, 12, 1))
     out = (node_blocks @ x.unsqueeze(-1)).squeeze(-1)
-    return out.index_add_(0, idx2, (Jc.transpose(-1, -2) @ y).reshape(2 * E, 6))
+    return out + _plan_sum(plan2, (Jc.transpose(-1, -2) @ y).reshape(2 * E, 6))
 
 
-def _cg(Jc, info_w, idx2, node_blocks, minv, b, cg_iters: int):
+def _cg(Jc, info_w, idx2, plan2, node_blocks, minv, b, cg_iters: int):
     """``cg_iters`` Jacobi-preconditioned conjugate-gradient iterations on
     H dx = b from dx = 0, with no early exit (the twin's fixed-length
     ``lax.scan``) and no host sync."""
@@ -381,7 +466,7 @@ def _cg(Jc, info_w, idx2, node_blocks, minv, b, cg_iters: int):
     p = z.clone()
     rz = (b * z).sum()
     for _ in range(cg_iters):
-        Ap = _hx_product(Jc, info_w, idx2, node_blocks, p)
+        Ap = _hx_product(Jc, info_w, idx2, plan2, node_blocks, p)
         alpha = rz / torch.clamp_min((p * Ap).sum(), 1e-12)
         x.addcmul_(alpha, p)
         rr.addcmul_(alpha, Ap, value=-1.0)
@@ -434,9 +519,10 @@ def _solve_cg(args, cg_iters: int, graphs: bool = True):
 
 
 def _pcg_step(g: PoseGraph, poses, lam, robust: bool, huber_delta: float,
-              switch_mask, phi, damping: float, cg_iters: int, graphs: bool):
+              switch_mask, phi, damping: float, cg_iters: int, graphs: bool, plans):
     """One damped Gauss-Newton step solved by PCG; returns the candidate
-    poses (the caller accepts or rejects them)."""
+    poses (the caller accepts or rejects them). ``plans``: the
+    ``_sum_plan`` of the edges' node indices and of the priors'."""
     N, dev = poses.shape[0], poses.device
     r, Ji, Jj = _edge_residual_jac(poses[g.edges_from], poses[g.edges_to], g.edges_meas)
     w = (_huber_weights(r, g.edges_info, huber_delta) if robust
@@ -446,25 +532,24 @@ def _pcg_step(g: PoseGraph, poses, lam, robust: bool, huber_delta: float,
     info_w = g.edges_info * (w * g.edge_valid)[:, None, None]
     E = r.shape[0]
     idx2 = torch.stack([g.edges_from, g.edges_to], dim=1).reshape(-1)
+    plan2, plan_p = plans
     Jc = torch.cat([Ji, Jj], dim=-1)
-    b = torch.zeros((N, 6), dtype=torch.float32, device=dev)
-    b.index_add_(0, idx2, (Jc.transpose(-1, -2) @ (info_w @ r.unsqueeze(-1))).reshape(2 * E, 6))
+    b = _plan_sum(plan2, (Jc.transpose(-1, -2) @ (info_w @ r.unsqueeze(-1))).reshape(2 * E, 6))
     # Jacobi preconditioner: diag(H), each edge's diag(Jc^T Omega Jc)
-    diag = torch.zeros((N, 6), dtype=torch.float32, device=dev)
-    diag.index_add_(0, idx2, (Jc * (info_w @ Jc)).sum(-2).reshape(2 * E, 6))
+    diag = _plan_sum(plan2, (Jc * (info_w @ Jc)).sum(-2).reshape(2 * E, 6))
     node_blocks = torch.zeros((N, 6, 6), dtype=torch.float32, device=dev)
     if g.priors_idx.shape[0] > 0:
         _, Hp, bp = _prior_blocks(g, poses)
-        b.index_add_(0, g.priors_idx, bp)
-        diag.index_add_(0, g.priors_idx, Hp.diagonal(dim1=-2, dim2=-1))
-        node_blocks.index_add_(0, g.priors_idx, Hp)
+        b = b + _plan_sum(plan_p, bp)
+        diag = diag + _plan_sum(plan_p, Hp.diagonal(dim1=-2, dim2=-1))
+        node_blocks = node_blocks + _plan_sum(plan_p, Hp)
     # gauge and invalid-node clamps, and LM damping lambda diag(H)
     root = torch.nn.functional.one_hot(torch.tensor(g.root, device=dev), N).float()
     fix = (root + (~g.node_valid).float()) * 1e8 + damping
     damp6 = fix[:, None] + lam * torch.clamp_min(diag, 1e-8)
     node_blocks = node_blocks + torch.diag_embed(damp6)
     minv = 1.0 / (diag + damp6 + 1e-8)
-    dx = _solve_cg((Jc, info_w, idx2, node_blocks, minv, -b), cg_iters, graphs)
+    dx = _solve_cg((Jc, info_w, idx2, plan2, node_blocks, minv, -b), cg_iters, graphs)
     dx = torch.where(g.node_valid[:, None], dx, torch.zeros_like(dx))
     nrm = torch.linalg.norm(dx, dim=-1, keepdim=True)
     dx = dx * torch.clamp_max(1.0 / torch.clamp_min(nrm, 1e-9), 1.0)
@@ -480,9 +565,14 @@ def optimize_pcg(g: PoseGraph, iters: int = 15, cg_iters: int = 60, damping: flo
     of matrix-free Jacobi-preconditioned CG, for graphs too large for the
     dense Cholesky. A step that raises the robust objective or is not
     finite is rejected and lambda raised. On a CUDA device the CG loop
-    runs as a captured graph (``graphs=False``: eagerly). Returns (graph,
-    chi2)."""
+    runs as a captured graph (``graphs=False``: eagerly). Every sum over
+    the edges runs in a fixed order (``_sum_plan``), so the result does
+    not depend on the order of atomics. Returns (graph, chi2)."""
     dev = g.poses.device
+    N = g.poses.shape[0]
+    plans = (_sum_plan(torch.stack([g.edges_from, g.edges_to], dim=1).reshape(-1),
+                       g.edge_valid.repeat_interleave(2), N),
+             _sum_plan(g.priors_idx, g.prior_valid, N))
     poses = g.poses
     lam = torch.tensor(damping, dtype=torch.float32, device=dev)
     n_acc = torch.zeros((), dtype=torch.float32, device=dev)
@@ -492,7 +582,7 @@ def optimize_pcg(g: PoseGraph, iters: int = 15, cg_iters: int = 60, damping: flo
         phi_k = (_dcs_phi_schedule(phi0, dcs_phi, n_acc, iters)
                  if switch_mask is not None else None)
         cand = _pcg_step(g, poses, lam, robust, huber_delta, switch_mask, phi_k, damping,
-                         cg_iters, graphs)
+                         cg_iters, graphs, plans)
         if cur is None or switch_mask is not None:
             # without DCS the objective does not change between iterations
             cur = _robust_cost(g, poses, robust, huber_delta, switch_mask, phi_k)

@@ -199,12 +199,16 @@ def store_counts(path: str, map_id_below: int) -> Dict[str, int]:
 
 def iter_sessions(path: str, device: DeviceLike = None, frames: int = 0,
                   size: Tuple[int, int] = (640, 480), seed: int = 0,
-                  on_frame=None, sessions: Tuple[str, ...] = SESSIONS) -> Iterator[Dict]:
+                  on_frame=None, sessions: Tuple[str, ...] = SESSIONS,
+                  on_run=None) -> Iterator[Dict]:
     """Run ``sessions`` (by default all three, in order) against the store
     at ``path`` on ``device`` (None = the CUDA card), one per step of the
     iteration, each ending with its store closed; yields each session's
     summary (the raw run under ``"run"``). ``on_frame(session, i)`` is
-    called right before frame i of a session is handed over."""
+    called right before frame i of a session is handed over;
+    ``on_run(session, run)`` right after its last frame, before the
+    mapping session's ``repair_graph()`` and the store's close; what it
+    returns is kept under ``"on_run"``."""
     from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
     from rtabmap_tpu_torch.memory.db import Database
     from rtabmap_tpu_torch.tools.dataset_runner import run_dataset
@@ -237,6 +241,7 @@ def iter_sessions(path: str, device: DeviceLike = None, frames: int = 0,
             run = run_dataset(stream(), cam, p, max_kp=spec["max_kp"],
                               node_capacity=spec["node_capacity"], db=db, slam=slam,
                               verbose=False, device=dev, seed=seed)
+            seen = on_run(name, run) if on_run is not None else None
             repaired = run["slam"].repair_graph() if name == "mapping" else []
             res = session_summary(name, run, poses, n_stored)
             res["repaired_links"] = [list(lk) for lk in repaired]
@@ -245,6 +250,8 @@ def iter_sessions(path: str, device: DeviceLike = None, frames: int = 0,
             db.close()
         res["store"] = store_counts(path, run["slam"].memory.map_id)
         res["run"] = run
+        if on_run is not None:
+            res["on_run"] = seen
         yield res
 
 

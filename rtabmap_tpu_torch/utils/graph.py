@@ -1,15 +1,126 @@
-"""Pose-graph host utilities.
+"""Pose-graph host utilities: nearest nodes, radius and frustum filtering.
 
-Port of the part of ``rtabmap_tpu/utils/graph.py`` the engine reaches:
-``PoseStore``, the optimized-pose map with a compact position array for
-radius queries. Shortest paths, nearest-node and filtering helpers come
-with the slices that call them.
+Port of ``rtabmap_tpu/utils/graph.py`` (the reference's ``graph``
+namespace, Graph.cpp): ``links_to_adjacency``, ``find_nearest_nodes``,
+``radius_poses_filtering``, ``frustum_poses_filtering``,
+``radius_poses_clustering``, ``connected_component`` and ``PoseStore``,
+the optimized-pose map with a compact position array for radius queries.
+Host-side numpy, as in the twin (graph bookkeeping is control-plane).
+``compute_path`` comes with the planner.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+
+def links_to_adjacency(signatures) -> Dict[int, Dict[int, float]]:
+    """Build {id: {neighbor: length}} from signature link dicts."""
+    adj: Dict[int, Dict[int, float]] = {}
+    for sid, sig in signatures.items():
+        for j, lk in sig.links.items():
+            d = float(np.linalg.norm(np.asarray(lk.transform)[:3, 3]))
+            adj.setdefault(sid, {})[j] = d
+            adj.setdefault(j, {})[sid] = d
+    return adj
+
+
+def _angle_between(Ra: np.ndarray, Rb: np.ndarray) -> float:
+    cosang = float(np.clip((np.trace(Ra.T @ Rb) - 1) / 2, -1, 1))
+    return float(np.arccos(cosang))
+
+
+def find_nearest_nodes(target_pose: np.ndarray, poses: Dict[int, np.ndarray],
+                       radius: float = 0.0, angle: float = 0.0,
+                       k: int = 0) -> List[Tuple[int, float]]:
+    """Nodes within ``radius`` (and a view-angle cone) of the target pose,
+    nearest first (graph::findNearestNodes)."""
+    tp = np.asarray(target_pose)
+    out = []
+    for i, P in poses.items():
+        P = np.asarray(P)
+        d = float(np.linalg.norm(P[:3, 3] - tp[:3, 3]))
+        if radius > 0 and d > radius:
+            continue
+        if angle > 0 and _angle_between(P[:3, :3], tp[:3, :3]) > angle:
+            continue
+        out.append((i, d))
+    out.sort(key=lambda x: x[1])
+    return out[:k] if k > 0 else out
+
+
+def radius_poses_filtering(poses: Dict[int, np.ndarray], radius: float,
+                           angle: float = 0.0) -> List[int]:
+    """One node per radius neighbourhood, in id order
+    (graph::radiusPosesFiltering)."""
+    kept: List[int] = []
+    for i in sorted(poses):
+        pi = np.asarray(poses[i])
+        ok = True
+        for j in kept:
+            pj = np.asarray(poses[j])
+            if np.linalg.norm(pi[:3, 3] - pj[:3, 3]) < radius:
+                if angle <= 0 or _angle_between(pi[:3, :3], pj[:3, :3]) < angle:
+                    ok = False
+                    break
+        if ok:
+            kept.append(i)
+    return kept
+
+
+def frustum_poses_filtering(poses: Dict[int, np.ndarray], camera_pose: np.ndarray,
+                            horizontal_fov_deg: float = 45.0,
+                            vertical_fov_deg: float = 45.0,
+                            near: float = 0.1, far: float = 100.0,
+                            negative: bool = False) -> List[int]:
+    """Poses whose position lies inside the camera's view frustum
+    (graph::frustumPosesFiltering; its convention: camera X forward, Y up,
+    Z right)."""
+    cp = np.asarray(camera_pose, np.float32)
+    ids = sorted(poses)
+    if not ids:
+        return []
+    P = np.stack([np.asarray(poses[i], np.float32)[:3, 3] for i in ids])
+    pc = (P - cp[:3, 3]) @ cp[:3, :3]          # R^T (p - t)
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    th = np.tan(np.deg2rad(horizontal_fov_deg) / 2.0)
+    tv = np.tan(np.deg2rad(vertical_fov_deg) / 2.0)
+    inside = (x > near) & (x < far) & (np.abs(z) < x * th) & (np.abs(y) < x * tv)
+    if negative:
+        inside = ~inside
+    return [i for i, ok in zip(ids, inside) if ok]
+
+
+def radius_poses_clustering(poses: Dict[int, np.ndarray], radius: float,
+                            angle: float = 0.0) -> List[Tuple[int, int]]:
+    """Every ordered (id, neighbour id) pair within ``radius`` (and the
+    orientation cone) of each other (graph::radiusPosesClustering)."""
+    ids = sorted(poses)
+    if not ids:
+        return []
+    P = np.stack([np.asarray(poses[i], np.float32) for i in ids])
+    pos = P[:, :3, 3]
+    near = np.sum((pos[:, None] - pos[None]) ** 2, axis=-1) < radius * radius
+    np.fill_diagonal(near, False)
+    if angle > 0:
+        R = P[:, :3, :3]
+        cosang = np.clip((np.einsum("iab,jab->ij", R, R) - 1.0) / 2.0, -1.0, 1.0)
+        near &= np.arccos(cosang) < angle
+    ii, jj = np.nonzero(near)
+    return [(ids[a], ids[b]) for a, b in zip(ii, jj)]
+
+
+def connected_component(adj: Dict[int, Dict[int, float]], seed: int) -> List[int]:
+    out = {seed}
+    frontier = [seed]
+    while frontier:
+        u = frontier.pop()
+        for v in adj.get(u, {}):
+            if v not in out:
+                out.add(v)
+                frontier.append(v)
+    return sorted(out)
 
 
 class PoseStore(dict):

@@ -1,10 +1,13 @@
-"""Bundle adjustment: the port's bundle_adjust and outlier_mask against the
-JAX twins on the problems of tests/test_ba.py.
+"""Bundle adjustment: the port's bundle_adjust, bundle_adjust_large and
+outlier_mask against the JAX twins on the problems of tests/test_ba.py.
 
 Tolerances: refined poses and points to 1e-4, the final cost to 1e-3
 relative (float32 LM: the point blocks are summed by index_add_, the
 reduced camera system is solved by another LU, and each step's accept
-test compares two costs); the outlier mask exactly."""
+test compares two costs); the outlier mask exactly. The implicit-Schur
+``bundle_adjust_large`` is held to its twin the same way (its fixed-length
+CG sums the same products in another order) and, like the twin's test, to
+the dense solve's converged cost."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -83,3 +86,33 @@ def test_cam_reduce_and_residual_jacobian():
                             torch.from_numpy(uv))
     for a, b in zip(port, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
+def _large_problem(seed=0, Nc=6, Np=120, No=600):
+    """tests/test_ba.py::test_large_ba_matches_dense's problem."""
+    rng = np.random.RandomState(seed)
+    pts = (rng.randn(Np, 3) * 0.8 + np.array([0, 0, 5])).astype(np.float32)
+    poses = np.tile(np.eye(3, 4, dtype=np.float32), (Nc, 1, 1))
+    poses[:, 0, 3] = np.linspace(0, 0.5, Nc)
+    ci = rng.randint(0, Nc, No).astype(np.int32)
+    pi = rng.randint(0, Np, No).astype(np.int32)
+    pc = pts[pi].copy()
+    pc[:, 0] -= poses[ci][:, 0, 3]
+    uv = (pc[:, :2] / pc[:, 2:3]).astype(np.float32)
+    noisy_pts = pts + 0.02 * rng.randn(Np, 3).astype(np.float32)
+    noisy_poses = poses.copy()
+    noisy_poses[1:, :3, 3] += 0.01 * rng.randn(Nc - 1, 3).astype(np.float32)
+    fixed = np.zeros(Nc, bool)
+    fixed[0] = True
+    return JBA.BAProblem(*(jnp.asarray(x) for x in (
+        noisy_poses, noisy_pts, ci, pi, uv, np.ones(No, bool), fixed)))
+
+
+def test_bundle_adjust_large_matches_the_twin_and_the_dense_solve():
+    prob = _large_problem()
+    ref, ref_cost = JBA.bundle_adjust_large(prob, iters=8, cg_iters=40)
+    out, cost = BA.bundle_adjust_large(_port(prob), iters=8, cg_iters=40)
+    _same(out, cost, ref, ref_cost)
+    dense, dense_cost = BA.bundle_adjust(_port(prob), iters=8)
+    np.testing.assert_allclose(out.poses.numpy(), dense.poses.numpy(), atol=1e-4)
+    assert float(cost) < 1e-4 and float(dense_cost) < 1e-4

@@ -216,3 +216,35 @@ def test_optimize_pcg_on_the_card_equals_the_cpu():
         np.testing.assert_allclose(out.poses.cpu().numpy(), cpu.poses.numpy(), atol=1e-3)
         assert abs(float(c) - float(cc)) <= 1e-3 * float(cc)
     assert float(cc) < 0.1 * float(PG.graph_chi2(PG.make_graph(*args, device="cpu", **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "dcs"])
+def test_optimize_dense_graph_on_the_card_equals_the_cpu(mode):
+    """A 100-node ring padded to the 128-node bucket, 12 LM iterations (the
+    engine's chunk), plain and robust with DCS switchable closures: the
+    captured CUDA graph (twice: capture, then replay), the eager loop on
+    the card and the CPU run agree within 1e-3 m, chi2 within 1e-3
+    relative (tests/test_torch_pose_graph.py's bound: float32 sums in
+    another order through a Cholesky whose diagonal spans 1 .. 1e8)."""
+    from rtabmap_tpu_torch.optim import pose_graph as PG
+
+    dev = _card()
+    init, ef, et, meas, info = _planar_ring(100)
+    N, E = 128, 1 << (len(ef) - 1).bit_length()
+    pad = lambda a, n: np.concatenate([a, np.tile(np.eye(3, 4, dtype=np.float32), (n, 1, 1))])  # noqa: E731
+    args = (pad(init, N - 100), np.concatenate([ef, np.zeros(E - len(ef), np.int64)]),
+            np.concatenate([et, np.zeros(E - len(et), np.int64)]), pad(meas, E - len(ef)),
+            np.concatenate([info, np.tile(np.eye(6, dtype=np.float32), (E - len(ef), 1, 1))]))
+    kw = dict(node_valid=np.arange(N) < 100, edge_valid=np.arange(E) < len(ef))
+    switch = np.arange(E) >= 99
+    opts = dict(iters=12, robust=mode == "dcs")
+    cpu, cc = PG.optimize_dense(PG.make_graph(*args, device="cpu", **kw),
+                                switch_mask=torch.from_numpy(switch) if mode == "dcs" else None,
+                                **opts)
+    g = PG.make_graph(*args, device=dev, **kw)
+    sm = torch.from_numpy(switch).to(dev) if mode == "dcs" else None
+    for graphs in (True, True, False):
+        out, c = PG.optimize_dense(g, switch_mask=sm, graphs=graphs, **opts)
+        np.testing.assert_allclose(out.poses.cpu().numpy(), cpu.poses.numpy(), atol=1e-3)
+        assert abs(float(c) - float(cc)) <= 1e-3 * float(cc)

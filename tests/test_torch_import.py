@@ -24,7 +24,10 @@ print(len(names), bad)
 assert not bad, bad
 new = {"rtabmap_tpu_torch.ops.epipolar", "rtabmap_tpu_torch.core.laser_scan",
        "rtabmap_tpu_torch.sensors", "rtabmap_tpu_torch.sensors.lidar",
-       "rtabmap_tpu_torch.maps.grids", "rtabmap_tpu_torch.tools.rgbd_scan"}
+       "rtabmap_tpu_torch.maps.grids", "rtabmap_tpu_torch.tools.rgbd_scan",
+       "rtabmap_tpu_torch.maps.tsdf", "rtabmap_tpu_torch.maps.mesh",
+       "rtabmap_tpu_torch.maps.texture", "rtabmap_tpu_torch.memory.db_reader",
+       "rtabmap_tpu_torch.tools.cli", "rtabmap_tpu_torch.tools.export_poses"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -75,6 +78,10 @@ def test_entry_points_without_a_card_raise():
     from rtabmap_tpu_torch.optim.pose_graph import optimize_poses_dict
     from rtabmap_tpu_torch.tools.rgbd_sessions import iter_sessions
 
+    from rtabmap_tpu_torch.maps.tsdf import TSDFVolume
+    from rtabmap_tpu_torch.memory.db_reader import DBReader, database_recovery
+    from rtabmap_tpu_torch.tools import cli
+
     rgbd_p = Parameters({"Tpu/VocabularyCapacity": 1024})
     db = Database(":memory:", async_writes=False)
     eye = np.eye(3, 4, dtype=np.float32)
@@ -97,7 +104,15 @@ def test_entry_points_without_a_card_raise():
                  lambda: OccupancyGrid(),
                  lambda: LidarVLP16([]),
                  lambda: make_scan(np.zeros((4, 3), np.float32)),
-                 lambda: run_mapping("parity")):
+                 lambda: run_mapping("parity"),
+                 lambda: TSDFVolume((0, 0, 0), (1, 1, 1), 0.1),
+                 lambda: DBReader(db),
+                 lambda: database_recovery(":memory:", ":memory:"),
+                 lambda: cli.main(["reprocess", ":memory:"]),
+                 lambda: cli.main(["detect_more_loop_closures", ":memory:"]),
+                 lambda: cli.main(["global_ba", ":memory:"]),
+                 lambda: cli.main(["recovery", ":memory:", ":memory:"]),
+                 lambda: cli.main(["export_cloud", ":memory:", "x.ply", "--mesh"])):
         with pytest.raises(RuntimeError):
             make()
     db.close()
@@ -124,6 +139,16 @@ def test_unported_paths_raise_not_implemented():
     for what in ({"landmarks": [object()]}, {"descf": np.zeros((8, 256), np.float32)}):
         with pytest.raises(NotImplementedError):
             slam.process(None, np.eye(3, 4), **what)
+    # the store tools are ported; every other tool of the twin's CLI names
+    # the slice that brings it
+    from rtabmap_tpu_torch.tools import cli
+
+    ported = {"info", "reprocess", "export", "export_cloud", "recovery",
+              "detect_more_loop_closures", "global_ba", "reduce_graph"}
+    assert ported < set(cli.TOOLS) and len(cli.TOOLS) == 30
+    for name in sorted(set(cli.TOOLS) - ported):
+        with pytest.raises(NotImplementedError, match="slice"):
+            cli.main([name, "x"])
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "script-alone"])

@@ -153,8 +153,9 @@ def test_hx_product_matches_jax():
     want = JPG._hx_product(gj, jnp.asarray(Ji), jnp.asarray(Jj), jnp.asarray(info_w),
                            jnp.asarray(x), jnp.asarray(damp6))
     idx2 = torch.from_numpy(np.stack([ef, et], 1).reshape(-1))
+    plan2 = PG._sum_plan(idx2, torch.ones(2 * E, dtype=torch.bool), N)
     got = PG._hx_product(torch.cat([torch.from_numpy(Ji), torch.from_numpy(Jj)], -1),
-                         torch.from_numpy(info_w), idx2,
+                         torch.from_numpy(info_w), idx2, plan2,
                          torch.diag_embed(torch.from_numpy(damp6)), torch.from_numpy(x))
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max())
