@@ -25,13 +25,17 @@ Phases — any failure ends the run with a non-zero exit code:
    masks (queries and points), and at the edge cases: a ragged 37 x 5000
    with 30% invalid and duplicated points, with and without a 30% query
    mask, no valid point, no valid query, one valid query and point, 1 x 1;
-   K2's compaction kernel against its plain version; K2 at the RGB-D +
+   K2's compaction kernel against its plain version in every case, and at
+   the edges of its tiles (``compact_edge_cases``, the case list of
+   ``rtabmap_tpu_torch/ops/cuda/compact_cases.py``: T-1 to 4T+1 points or
+   query flags, all, none or only the last one valid, each with its flags
+   aligned and at a byte offset that is not a multiple of 16); K2 at the RGB-D +
    LiDAR path's destinations: a 28800-point scan against three VLP-16
    scans assembled in one node's frame (131072 rows, the scan-proximity
    slab) and against the whole map's scans (4194304 rows, at most 65536
    valid after the 5 cm voxel hash: the global scan map); one masked
-   search under ``torch.cuda.set_sync_debug_mode("error")`` (it must not
-   sync).
+   search and the global scan map's compaction under
+   ``torch.cuda.set_sync_debug_mode("error")`` (they must not sync).
    Kernel times are one eager call each (``kernel_ms``, as the earlier
    slices timed them, the kernels line's ``ms``) and the device time of a
    CUDA graph of ten calls (``graph_ms``);
@@ -125,7 +129,12 @@ and reads them right after; they must equal the calls the run made (K1:
 one launch a quantize call; K2: one search launch a search, one
 compaction launch a prepared destination; in ``rgbd_scan`` 31 searches
 and one compaction a registration of a scan stage). The kernels line's
-``launches`` sums the slices that launch each kernel.
+``launches`` sums the slices that launch each kernel; a K2 search launch
+is two CUDA kernels (``nn3d_chunks``, ``nn3d_merge``), a compaction launch
+one or two (``nn3d_compact_scatter``, after ``nn3d_compact_count`` in a
+plan of more than ``K2.COMPACT_ONE_PASS_TILES`` tiles a kind; the LiDAR
+and ``rgbd_scan`` runs print those plans as
+``nn3d_compact_count_launches``, and ``rgbd_scan`` fails without one).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -153,6 +162,7 @@ from rtabmap_tpu_torch.maps import tsdf as TSDF
 from rtabmap_tpu_torch.memory.db import Database
 from rtabmap_tpu_torch.ops.cloud import estimate_normals, voxel_filter
 from rtabmap_tpu_torch.ops.cuda import build
+from rtabmap_tpu_torch.ops.cuda import compact_cases as CC
 from rtabmap_tpu_torch.ops.cuda import nn3d as K2
 from rtabmap_tpu_torch.ops.cuda import vocab_knn as K1
 from rtabmap_tpu_torch.optim import ba as BA
@@ -508,7 +518,28 @@ def nn3d_cases():
                   t(np.arange(64) == 40)))
     cases.append(("one", t(np.ones((1, 3), np.float32)), t(np.zeros((1, 3), np.float32)),
                   t(np.ones(1, bool)), None))
-    return cases + scan_slab_cases()
+    return cases + compact_edge_cases() + scan_slab_cases()
+
+
+def compact_edge_cases():
+    """K2's compaction at the edges of its tiles: every case of
+    ``compact_cases.NAMES``, its flags aligned and 5 bytes into a larger
+    tensor (an address that is not a multiple of 16)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    cases = []
+    for name in CC.NAMES:
+        points, flags, q_flags = CC.flag_case(name)
+        dst = torch.from_numpy(points).to(dev)
+        n_query = 64 if q_flags is None else q_flags.size
+        src = torch.from_numpy(rng.normal(size=(n_query, 3)).astype(np.float32)).to(dev)
+        for offset in (0, 5):
+            valid = CC.on_device(flags, dev, offset)
+            if offset and valid.data_ptr() % 16 == 0:
+                fail("the misaligned compaction case's flags are 16-byte aligned")
+            cases.append((f"{name}-at-{offset}", src, dst, valid,
+                          CC.on_device(q_flags, dev, offset)))
+    return cases
 
 
 def nn3d_library(src, dst, valid, src_valid):
@@ -540,10 +571,11 @@ def nn3d_bound_ms(Q: int, N: int, n_query: int, n_point: int) -> tuple:
 
 
 def compact_bound_ms(Q: int, N: int, n_point: int) -> tuple:
-    """Least time of K2's compaction: points (12 bytes) and both masks read
-    once, the compacted points (16 bytes), their indices, the query order
-    and the counts written once; no arithmetic to speak of."""
-    bytes_ = 12 * N + N + Q + 20 * n_point + 4 * Q + 8
+    """Least time of K2's compaction: both masks read once (a byte a flag)
+    and the valid points only (12 bytes each: the contract reads no
+    invalid one), the compacted points (16 bytes) and their indices, the
+    query order and the counts written once; no arithmetic to speak of."""
+    bytes_ = N + Q + 12 * n_point + 20 * n_point + 4 * Q + 8
     return bytes_ / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -621,7 +653,7 @@ def check_nn3d():
     frame = {key: 16 * rows["odometry-masked"][key] + 16 * rows["closure-masked"][key]
              for key in ("kernel_ms", "graph_ms")}
     print(json.dumps({"kernel": "nn3d", "full_width_frame": frame}), flush=True)
-    check_no_sync()
+    check_no_sync(next(c for c in cases if c[0] == "global-scan-map"))
     main_shape = rows["odometry-masked"]
     k2 = {"name": "nn3d", "route": "cuda", "source": "rtabmap_tpu_torch/csrc/nn3d.cu",
           "replaces": "rtabmap_tpu/ops/pallas/nn3d.py:56", "max_abs_err": 0.0,
@@ -639,21 +671,28 @@ def check_nn3d():
     return k2, compact
 
 
-def check_no_sync():
-    """A masked search, compaction included, under sync-debug "error": any
-    host synchronization inside the wrappers raises."""
+def check_no_sync(global_case):
+    """A masked search, compaction included, and the global scan map's
+    compaction under sync-debug "error": any host synchronization inside
+    the wrappers raises."""
     _, scans = LM.sensor_sequence(2, noise=LIDAR_NOISE, device=torch.device("cuda"))
     (a, a_valid), (b, b_valid) = list(scans)
     a_mask, b_mask = voxel_filter(a, a_valid, 0.05), voxel_filter(b, b_valid, 0.05)
+    _, _, g_dst, g_valid, g_src_valid = global_case
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         d, i = K2.nn3d(b, a, a_mask, b_mask)
+        plan = K2.nn3d_prepare(g_dst, g_valid, g_src_valid)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    if int(plan.counts[0]) != int(g_valid.sum()):
+        fail("the global scan map's compaction under sync-debug counted "
+             f"{int(plan.counts[0])} of {int(g_valid.sum())} valid points")
     print(json.dumps({"kernel": "nn3d", "sync_debug": "error", "synced": False,
-                      "queries": b.shape[0]}), flush=True)
+                      "queries": b.shape[0], "global_scan_map_rows": g_dst.shape[0]}),
+          flush=True)
 
 
 # -------------------------------------------------------------------- slice
@@ -698,9 +737,10 @@ def run_lidar(n_azimuth: int, map_capacity: int) -> dict:
     dev = torch.device("cuda")
     gt, scans = LM.sensor_sequence(LIDAR_FRAMES, n_azimuth=n_azimuth, noise=LIDAR_NOISE,
                                    device=dev)
-    K2.nn3d_search.launches = K2.nn3d_prepare.launches = 0
+    K2.nn3d_search.launches = K2.nn3d_prepare.launches = K2.nn3d_prepare.count_launches = 0
     out = LM.run_lidar_mapping(scans, gt_poses=gt, device=dev, map_capacity=map_capacity)
     launches, compactions = K2.nn3d_search.launches, K2.nn3d_prepare.launches
+    count_passes = K2.nn3d_prepare.count_launches
     st = out["odometry"].state
     for name, t in (("map points", st.map_pts), ("map normals", st.map_nrm),
                     ("map flags", st.map_valid), ("odometry pose", st.pose),
@@ -719,7 +759,7 @@ def run_lidar(n_azimuth: int, map_capacity: int) -> dict:
     res = {"slice": "lidar_mapping", "points": n_azimuth * 16, "frames": LIDAR_FRAMES,
            "map_capacity": map_capacity,
            "nn3d_launches": launches, "nn3d_compact_launches": compactions,
-           **LM.summary(out)}
+           "nn3d_compact_count_launches": count_passes, **LM.summary(out)}
     print(json.dumps(res), flush=True)
     return res
 
@@ -1030,13 +1070,17 @@ def scan_run(label: str, fn, stages) -> tuple:
     """One rgbd_scan run with the launch counts zeroed right before it and
     read right after; checks K1 against the quantize calls, every K2
     launch against the scan stages' registrations, the engine's state on
-    the card and finite statistics. Returns (summary, raw run, launches)."""
+    the card and finite statistics. Returns (summary, raw run, launches:
+    K1, K2's searches, its compactions and the compactions that ran the
+    count pass: those of more than ``K2.COMPACT_ONE_PASS_TILES`` tiles)."""
     for c in stages.values():
         c.update(calls=0, searches=0, compactions=0, ms=[])
     K1.knn2.launches = K2.nn3d_search.launches = K2.nn3d_prepare.launches = 0
+    K2.nn3d_prepare.count_launches = 0
     t0 = time.perf_counter()
     res, run = fn()
-    launches = (K1.knn2.launches, K2.nn3d_search.launches, K2.nn3d_prepare.launches)
+    launches = (K1.knn2.launches, K2.nn3d_search.launches, K2.nn3d_prepare.launches,
+                K2.nn3d_prepare.count_launches)
     slam = run["slam"]
     mem = slam.memory
     scans = [s.scan.data for s in mem.signatures.values() if s.scan is not None]
@@ -1060,12 +1104,16 @@ def scan_run(label: str, fn, stages) -> tuple:
     if (launches[1], launches[2]) != (sum(c["searches"] for c in stages.values()),
                                       sum(c["compactions"] for c in stages.values())):
         fail(f"{label}: nn3d launched outside the scan stages")
+    if launches[3] > launches[2]:
+        fail(f"{label}: nn3d_compact ran its count pass {launches[3]} times in "
+             f"{launches[2]} compactions")
     for st in slam.stats_history:
         for k, v in st.data.items():
             if not np.isfinite(v):
                 fail(f"{label}: statistic {k} = {v}")
     res.update(seconds=time.perf_counter() - t0, vocab_knn2_launches=launches[0],
                nn3d_launches=launches[1], nn3d_compact_launches=launches[2],
+               nn3d_compact_count_launches=launches[3],
                stages={k: {**{n: v[n] for n in ("calls", "searches", "compactions")},
                            "registrations": regs[k], "ms": rgbd_sessions._ms(v["ms"])}
                        for k, v in stages.items()})
@@ -1076,10 +1124,10 @@ def scan_run(label: str, fn, stages) -> tuple:
 def run_scan_slice() -> tuple:
     """The three rgbd_scan runs on the card (parity, full width into a
     store, localization in it); returns the phase's (K1, K2, K2 compaction)
-    launches."""
+    launches; fails if no compaction ran its count pass."""
     dev = torch.device("cuda")
     stages, undo = instrument_scan_stages()
-    total = np.zeros(3, np.int64)
+    total = np.zeros(4, np.int64)
     try:
         par, _, n = scan_run("parity", lambda: RSC.run_mapping("parity", dev), stages)
         total += n
@@ -1144,7 +1192,9 @@ def run_scan_slice() -> tuple:
                  f"{SCAN_LOCALIZED_THRESHOLD}), {loc['lost']} lost")
     finally:
         undo()
-    return tuple(int(x) for x in total)
+    if total[3] == 0:
+        fail("rgbd_scan: no compaction ran nn3d_compact_count")
+    return tuple(int(x) for x in total[:3])
 
 
 # ---------------------------------------------------------------- map tools

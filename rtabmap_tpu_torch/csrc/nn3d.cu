@@ -19,11 +19,15 @@
 // once. At the ICP shapes the instructions dominate by two orders of
 // magnitude, so the design spends no instruction on a pair that no caller
 // reads:
-// - nn3d_compact runs once per destination (once per icp() call): its
-//   blocks stream-compact the valid points, in order, into (x, y, z, 0)
-//   float4s with their original indices, and partition the query mask
-//   into the valid queries, in order, then the masked ones. The two
-//   counts stay in device memory; nothing syncs with the host.
+// - nn3d_compact runs once per destination (once per icp() call): it
+//   stream-compacts the valid points, in order, into (x, y, z, 0) float4s
+//   with their original indices, and partitions the query mask into the
+//   valid queries, in order, then the masked ones. The two counts stay in
+//   device memory; nothing syncs with the host. It reads each flag twice
+//   and each valid point once, so bytes bound it (the flags and 12 bytes a
+//   valid point read, 20 bytes a valid point and 4 a query written): see
+//   nn3d_compact_launch for its two passes (nn3d_compact_count, then
+//   nn3d_compact_scatter).
 // - nn3d_chunks reads the counts, splits the valid work over its grid
 //   (the host sizes the grid from Q and N only) and exits where there is
 //   none. Each thread holds kR queries in registers, so one shared-memory
@@ -46,10 +50,11 @@ constexpr int kR = 4;           // queries a thread
 constexpr int kBQ = kThreads * kR;
 constexpr int kTile = 256;      // destination points a shared tile
 constexpr int kMinChunk = 256;  // fewest points a chunk takes
-constexpr int kScanThreads = 256;           // threads of a compaction block
+constexpr int kScanThreads = 1024;          // threads of a compaction block
 constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kPer = 8;                      // flags a compaction thread
-constexpr int kSeg = kPer * kScanThreads;    // flags a compaction block
+constexpr int kSteps = 8;                    // flags a lane of a compaction block
+constexpr int kWarpFlags = 32 * kSteps;       // flags a warp: one a lane a step
+constexpr int kTileFlags = kWarpFlags * kScanWarps;  // flags a compaction block
 
 __device__ __forceinline__ float pair_dist2(float qx, float qy, float qz, float4 p) {
   const float dx = __fsub_rn(qx, p.x);
@@ -59,89 +64,164 @@ __device__ __forceinline__ float pair_dist2(float qx, float qy, float qz, float4
   return __fadd_rn(xy, __fmul_rn(dz, dz));
 }
 
-// Inclusive prefix sum of one int a thread over the block (kScanThreads
-// threads); warp_sums[kScanWarps - 1] then holds the block's total.
-__device__ int block_inclusive_scan(int v, int* warp_sums) {
+// The exclusive prefix, over the block's warps, of one int a warp (the
+// same in every lane) and the block's total, as (prefix, total).
+__device__ int2 warp_prefix(int v, int* sums) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  if (lane == 31) warp_sums[warp] = v;
+  if (lane == 0) sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < kScanWarps ? warp_sums[lane] : 0;
+    int w = lane < kScanWarps ? sums[lane] : 0;
 #pragma unroll
-    for (int o = 1; o < kScanWarps; o <<= 1) {
+    for (int o = 1; o < 32; o <<= 1) {
       const int t = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += t;
     }
-    if (lane < kScanWarps) warp_sums[lane] = w;
+    if (lane < kScanWarps) sums[lane] = w;
   }
   __syncthreads();
-  return v + (warp > 0 ? warp_sums[warp - 1] : 0);
+  const int2 r = make_int2(warp > 0 ? sums[warp - 1] : 0, sums[kScanWarps - 1]);
+  __syncthreads();  // sums is reused
+  return r;
 }
 
-// The block's total of one int a thread (kScanThreads threads).
-__device__ int block_sum(int v, int* warp_sums) {
-  block_inclusive_scan(v, warp_sums);
-  const int total = warp_sums[kScanWarps - 1];
-  __syncthreads();  // warp_sums is reused
-  return total;
+// The block's total of one int a thread.
+__device__ int block_sum(int v, int* sums) {
+  return warp_prefix(__reduce_add_sync(0xffffffffu, v), sums).y;
 }
 
-// Blocks [0, point_blocks): dst4[0, np) = the valid points in order, dlist
-// = their indices, counts[0] = np. The blocks after them (only with a
-// query mask): qlist = the valid queries in order then the masked ones in
-// order, counts[1] = nq. Each block takes one segment of kSeg flags, each
-// thread kPer consecutive flags of it, so the order is kept; a block first
-// counts the valid flags before its segment (and, for the queries, all of
-// them), which needs no pass across blocks. Flags of a torch bool tensor
-// are bytes 0 or 1.
+// Block b's kind and tile: blocks [0, point_tiles) take the point flags,
+// the rest the query flags, kTileFlags flags a block.
+struct Tile {
+  bool points;
+  int t, n;
+  const uint8_t* flags;
+};
+
+__device__ __forceinline__ Tile tile_of(const uint8_t* dst_valid, int N,
+                                        const uint8_t* src_valid, int Q, int point_tiles) {
+  Tile k;
+  const int b = blockIdx.x;
+  k.points = b < point_tiles;
+  k.t = k.points ? b : b - point_tiles;
+  k.n = k.points ? N : Q;
+  k.flags = k.points ? dst_valid : src_valid;
+  return k;
+}
+
+// This thread's share of the valid flags in p[0, len), len >= 0, the
+// block's threads taking turns. Flags of a torch bool tensor are bytes 0
+// or 1, so the bit count of a 32-bit word is its count of true flags. The
+// flags are read as 16-byte vectors from the first 16-byte aligned address
+// (a caller's view may start anywhere); the unaligned head (< 16 flags)
+// and the tail one byte at a time.
+__device__ int count_share(const uint8_t* p, int len) {
+  const int head =
+      min(len, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15));
+  const int vecs = (len - head) >> 4;
+  const uint4* v = reinterpret_cast<const uint4*>(p + head);
+  int c = threadIdx.x < head ? p[threadIdx.x] : 0;
+  for (int i = threadIdx.x; i < vecs; i += kScanThreads) {
+    const uint4 w = v[i];
+    c += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+  }
+  for (int i = head + 16 * vecs + threadIdx.x; i < len; i += kScanThreads) c += p[i];
+  return c;
+}
+
+// Pass 1 (only with tile_counts): tile_counts[b] = the valid flags of block b's tile.
 __global__ void __launch_bounds__(kScanThreads)
-nn3d_compact(const float* __restrict__ dst, const uint8_t* __restrict__ dst_valid,
-             int N, const uint8_t* __restrict__ src_valid, int Q, int point_blocks,
-             float4* __restrict__ dst4, int* __restrict__ dlist,
-             int* __restrict__ qlist, int* __restrict__ counts) {
-  __shared__ int warp_sums[32];
-  const int tid = threadIdx.x;
-  const bool points = blockIdx.x < point_blocks;
-  const uint8_t* flags = points ? dst_valid : src_valid;
-  const int n = points ? N : Q;
-  const int seg0 = (points ? blockIdx.x : blockIdx.x - point_blocks) * kSeg;
-  int before = 0, all = 0;
-  for (int e = tid * kPer; e < n; e += kSeg) {
-    int c = 0;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) c += e + k < n ? flags[e + k] : 0;
-    all += c;
-    if (e < seg0) before += c;
-  }
-  before = block_sum(before, warp_sums);
-  all = block_sum(all, warp_sums);
-  if (seg0 == 0 && tid == 0) counts[points ? 0 : 1] = all;
+nn3d_compact_count(const uint8_t* __restrict__ dst_valid, int N,
+                   const uint8_t* __restrict__ src_valid, int Q, int point_tiles,
+                   int* __restrict__ tile_counts) {
+  __shared__ int sums[kScanWarps];
+  const Tile k = tile_of(dst_valid, N, src_valid, Q, point_tiles);
+  const int lo = k.t * kTileFlags;
+  const int c = block_sum(count_share(k.flags + lo, max(0, min(kTileFlags, k.n - lo))), sums);
+  if (threadIdx.x == 0) tile_counts[blockIdx.x] = c;
+}
 
-  const int lo = seg0 + tid * kPer;
-  bool on[kPer];
-  int mine = 0;
+// Pass 2: dst4[0, np) = the valid points in order, dlist = their indices,
+// counts[0] = np; qlist = the valid queries in order then the masked ones
+// in order, counts[1] = nq. Lane l of warp w takes the flags
+// t * kTileFlags + w * kWarpFlags + 32 s + l, s < kSteps, as the bits s of
+// one register; a ballot a step then ranks a lane's flag within its warp,
+// and a scan over the warps' totals places the warps. The valid flags
+// before the tile, and the kind's total, are summed from tile_counts (at
+// most a few thousand ints, from L2); without tile_counts (a plan of a
+// few tiles a kind) each block counts them from the flags. Integer sums
+// only, so nothing depends on scheduling.
+__global__ void __launch_bounds__(kScanThreads)
+nn3d_compact_scatter(const float* __restrict__ dst, const uint8_t* __restrict__ dst_valid,
+                     int N, const uint8_t* __restrict__ src_valid, int Q, int point_tiles,
+                     const int* __restrict__ tile_counts, float4* __restrict__ dst4,
+                     int* __restrict__ dlist, int* __restrict__ qlist,
+                     int* __restrict__ counts) {
+  __shared__ int sums[kScanWarps];
+  const Tile k = tile_of(dst_valid, N, src_valid, Q, point_tiles);
+  const int lane = threadIdx.x & 31;
+  const int e0 = k.t * kTileFlags + (threadIdx.x >> 5) * kWarpFlags + lane;
+  uint8_t f[kSteps];  // every load issued before any use: one latency, not kSteps
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    on[k] = lo + k < n && flags[lo + k];
-    mine += on[k];
+  for (int s = 0; s < kSteps; ++s) {
+    const int e = e0 + 32 * s;
+    f[s] = e < k.n ? k.flags[e] : 0;
   }
-  int pos = before + block_inclusive_scan(mine, warp_sums) - mine;
+  int b = 0, a = 0;  // this thread's share of the flags before the tile, of all
+  if (tile_counts) {
+    const int tiles = (k.n + kTileFlags - 1) / kTileFlags;
+    const int* tc = tile_counts + (k.points ? 0 : point_tiles);
+    for (int i = threadIdx.x; i < tiles; i += kScanThreads) {
+      const int c = tc[i];
+      a += c;
+      if (i < k.t) b += c;
+    }
+  } else {
+    b = count_share(k.flags, k.t * kTileFlags);
+    a = count_share(k.flags, k.n);
+  }
+  unsigned bits = 0;
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int e = lo + k;
-    if (points) {
-      if (!on[k]) continue;
-      dst4[pos] = make_float4(dst[3 * (size_t)e], dst[3 * (size_t)e + 1],
-                              dst[3 * (size_t)e + 2], 0.f);
-      dlist[pos++] = e;
-    } else if (e < n) {
-      if (on[k]) qlist[pos++] = e;
-      else qlist[all + e - pos] = e;  // e - pos masked queries before e
+  for (int s = 0; s < kSteps; ++s) bits |= (f[s] ? 1u : 0u) << s;
+  const int mine = __reduce_add_sync(0xffffffffu, __popc(bits));  // the warp's valid flags
+  const int2 warp = warp_prefix(mine, sums);
+  const int before = block_sum(b, sums), all = block_sum(a, sums);
+  if (k.t == 0 && threadIdx.x == 0) counts[k.points ? 0 : 1] = all;
+
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  int pos = before + warp.x;  // valid flags before this warp's step
+  if (k.points) {
+    if (mine == 0) return;  // no block-wide step follows
+    float x[kSteps], y[kSteps], z[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const size_t e = e0 + 32 * s;
+      const bool on = (bits >> s) & 1u;
+      x[s] = on ? dst[3 * e] : 0.f;
+      y[s] = on ? dst[3 * e + 1] : 0.f;
+      z[s] = on ? dst[3 * e + 2] : 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const bool on = (bits >> s) & 1u;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (on) {
+        const int at = pos + __popc(m & below);
+        dst4[at] = make_float4(x[s], y[s], z[s], 0.f);
+        dlist[at] = e0 + 32 * s;
+      }
+      pos += __popc(m);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int e = e0 + 32 * s;
+      const bool on = (bits >> s) & 1u;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      const int at = pos + __popc(m & below);  // valid queries before e
+      if (on) qlist[at] = e;
+      else if (e < k.n) qlist[all + e - at] = e;  // e - at masked queries before e
+      pos += __popc(m);
     }
   }
 }
@@ -285,18 +365,40 @@ extern "C" {
 int nn3d_block_queries() { return kBQ; }
 int nn3d_min_chunk() { return kMinChunk; }
 
-// dst (N,3) float32, dst_valid (N,) bool, src_valid (Q,) bool or null;
-// dst4 holds N float4, dlist N int32, qlist Q int32 (unused without a
-// query mask), counts 2 int32. Returns the CUDA error code of the launch.
+// Flags a compaction tile (the wrapper sizes tile_counts by it).
+int nn3d_compact_tile() { return kTileFlags; }
+
+// dst (N,3) float32, dst_valid (N,) bool, src_valid (Q,) bool where
+// `masked` (else unused: every query valid); dst4 holds N float4, dlist N
+// int32, qlist Q int32 (unused without a mask), counts 2 int32,
+// tile_counts null or one int32 a tile: ceil(N / tile) + (masked ? max(1,
+// ceil(Q / tile)) : 0). Both passes run one block a tile, the points'
+// tiles and the queries' in one grid. Pass 1 counts each tile's valid
+// flags, pass 2 places them. Without tile_counts (the wrapper passes none
+// where neither kind spans more than nn3d.py's COMPACT_ONE_PASS_TILES: the
+// LiDAR odometry and closure plans, 28,800 flags or fewer) pass 2 runs
+// alone and each block counts the flags before its tile itself, at most a
+// few tiles' reads a block, from L2: one dependent launch fewer. A flag is
+// read twice, the second time from L2. Returns the CUDA error code of the
+// launches.
 int nn3d_compact_launch(const void* dst, const void* dst_valid, int N,
-                        const void* src_valid, int Q, void* dst4, void* dlist,
-                        void* qlist, void* counts, void* stream) {
+                        const void* src_valid, int Q, int masked, void* dst4,
+                        void* dlist, void* qlist, void* counts, void* tile_counts,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int point_blocks = (N + kSeg - 1) / kSeg;
-  const int query_blocks = src_valid ? (Q + kSeg - 1) / kSeg : 0;
-  nn3d_compact<<<point_blocks + query_blocks, kScanThreads, 0, s>>>(
-      static_cast<const float*>(dst), static_cast<const uint8_t*>(dst_valid), N,
-      static_cast<const uint8_t*>(src_valid), Q, point_blocks,
+  const int point_tiles = (N + kTileFlags - 1) / kTileFlags;
+  const int query_tiles = masked ? (Q > kTileFlags ? (Q + kTileFlags - 1) / kTileFlags : 1) : 0;
+  const int tiles = point_tiles + query_tiles;
+  const uint8_t* dv = static_cast<const uint8_t*>(dst_valid);
+  const uint8_t* sv = static_cast<const uint8_t*>(src_valid);
+  int* tc = static_cast<int*>(tile_counts);
+  if (tc) {
+    nn3d_compact_count<<<tiles, kScanThreads, 0, s>>>(dv, N, sv, Q, point_tiles, tc);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  nn3d_compact_scatter<<<tiles, kScanThreads, 0, s>>>(
+      static_cast<const float*>(dst), dv, N, sv, Q, point_tiles, tc,
       static_cast<float4*>(dst4), static_cast<int*>(dlist), static_cast<int*>(qlist),
       static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());

@@ -1511,6 +1511,12 @@ class Rtabmap:
                 self._optimize_subgraph(st, new_links)):
             self._closures_since_full += 1
             return
+        self._optimize_full(st, new_links)
+
+    def _optimize_full(self, st: Statistics, new_links: List[Link]):
+        """Solve the whole graph. On divergence, or when ``new_links`` take
+        it past the RGBD/OptimizeMaxError gate, remove them and keep the
+        old poses; with no new link only divergence keeps them."""
         self._closures_since_full = 0
         ids, poses, ef, et, meas, info, switch, priors = self._build_graph()
         if len(ids) < 2 or len(ef) < 1:
@@ -1547,7 +1553,7 @@ class Rtabmap:
 
         new_poses = out.poses.cpu().numpy()
         diverged = not np.isfinite(new_poses[: len(ids)]).all() or not np.isfinite(max_err)
-        if diverged or (self.max_error > 0 and max_err > self.max_error):
+        if diverged or (new_links and self.max_error > 0 and max_err > self.max_error):
             # reject the new closures: remove their links, keep the old poses
             for lk in new_links:
                 self.memory.remove_link(lk.from_id, lk.to_id)
@@ -1720,7 +1726,8 @@ class Rtabmap:
                                   cluster_angle: float = 0.0, iterations: int = 1) -> int:
         """Offline: try a closure between every pair of nearby nodes not
         linked yet and re-optimize after each one accepted, gating it on
-        its own (Rtabmap::detectMoreLoopClosures). Returns the closures
+        its own, then solve the whole graph once an iteration that added
+        any (Rtabmap::detectMoreLoopClosures). Returns the closures
         added."""
         from rtabmap_tpu_torch.utils import graph as G
 
@@ -1750,6 +1757,10 @@ class Rtabmap:
             added_total += added
             if not added:
                 break
+            # the incremental solves leave the graph short of its optimum:
+            # solve it whole with the iteration's closures, ungated, as the
+            # reference does after each iteration
+            self._optimize_full(Statistics(), [])
         return added_total
 
     def refine_links(self) -> int:

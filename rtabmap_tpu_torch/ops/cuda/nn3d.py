@@ -5,14 +5,21 @@ the ICP correspondence search (``ops/icp.py::_nn_blocked``, reached by
 ``icp``, ``register_scans`` and the scan-odometry keyframe merge).
 
 - ``nn3d_prepare`` takes a destination and, optionally, a query mask and
-  returns an ``Nn3dPlan``; on CUDA tensors it launches ``nn3d_compact``
-  (the valid points and queries compacted in order, counts kept on the
-  device). ``nn3d_search`` runs one search of a plan; on CUDA tensors it
-  launches ``nn3d_chunks`` + ``nn3d_merge``. A plan serves every search
+  returns an ``Nn3dPlan``; on CUDA tensors it launches the compaction
+  ``nn3d_compact`` (the valid points and queries compacted in order,
+  counts kept on the device: ``nn3d_compact_count`` counts each tile of
+  ``COMPACT_TILE`` flags where the points or the queries span more than
+  ``COMPACT_ONE_PASS_TILES`` tiles, then ``nn3d_compact_scatter`` places
+  them).
+  ``nn3d_search`` runs one search of a plan; on CUDA tensors it launches
+  ``nn3d_chunks`` + ``nn3d_merge``. A plan serves every search
   of one ``icp()`` call: the destination and both masks stay fixed there.
   ``nn3d`` is the two in one call. On CUDA tensors each launches its
   kernel or raises; on CPU tensors they run the plain versions.
-  ``nn3d_prepare.launches`` and ``nn3d_search.launches`` count launches.
+  ``nn3d_prepare.launches`` and ``nn3d_search.launches`` count the calls
+  that launch their kernels: one a plan (the scatter, after the count
+  where there is one) and one a search (the chunks and the merge);
+  ``nn3d_prepare.count_launches`` counts the plans that ran the count.
 - ``nn3d_reference`` and ``nn3d_compact_reference`` are the plain PyTorch
   versions; the CPU tests hold the first against the Pallas kernel in
   interpret mode, and ``chip_smoke.py`` holds both kernels against them on
@@ -41,6 +48,14 @@ SOURCE = "nn3d"
 _PLAIN_PAIRS = 1 << 24
 # search blocks an SM: the grid the host sizes from Q and N alone
 _BLOCKS_PER_SM = 8
+# flags a compaction tile (csrc/nn3d.cu kTileFlags): one int32 of scratch a
+# tile. A plan whose points and queries span at most COMPACT_ONE_PASS_TILES
+# tiles each takes one launch, each block counting the flags before its
+# tile itself; a larger one runs the count first. One launch is the faster
+# at the LiDAR odometry plan on an H100 (PERF.md: about 0.0066 against
+# 0.0080 ms as a CUDA graph)
+COMPACT_TILE = 8192
+COMPACT_ONE_PASS_TILES = 4
 
 
 class Nn3dPlan(NamedTuple):
@@ -108,7 +123,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nn3d_compact_launch.argtypes = [p, p, i, p, i, p, p, p, p, p]
+        lib.nn3d_compact_launch.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p]
         lib.nn3d_compact_launch.restype = i
         lib.nn3d_search.argtypes = [p, p, p, p, p, i, i, p, p, p, p]
         lib.nn3d_search.restype = i
@@ -116,6 +131,9 @@ def _library() -> ctypes.CDLL:
         lib.nn3d_error_string.restype = ctypes.c_char_p
         lib.nn3d_block_queries.restype = i
         lib.nn3d_min_chunk.restype = i
+        lib.nn3d_compact_tile.restype = i
+        if lib.nn3d_compact_tile() != COMPACT_TILE:
+            raise RuntimeError("csrc/nn3d.cu's compaction tile differs from COMPACT_TILE")
         lib._typed = True
     return lib
 
@@ -173,21 +191,28 @@ def nn3d_prepare(dst: torch.Tensor, dst_valid: torch.Tensor,
     if not _on_card(*ts):
         return Nn3dPlan(dst, dst_valid, src_valid)
     dev = dst.device
+    masked = src_valid is not None
+    point_tiles = -(-N // COMPACT_TILE)
+    query_tiles = max(1, -(-Q // COMPACT_TILE)) if masked else 0
+    two_pass = max(point_tiles, query_tiles) > COMPACT_ONE_PASS_TILES
+    tiles = point_tiles + query_tiles if two_pass else 0
     dst4 = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    ints = torch.empty((N + Q + 2,), dtype=torch.int32, device=dev)
-    dlist, qlist, counts = ints[:N], ints[N:N + Q], ints[N + Q:]
+    ints = torch.empty((N + Q + 2 + tiles,), dtype=torch.int32, device=dev)
+    dlist, qlist = ints[:N], ints[N:N + Q]
+    counts, tile_counts = ints[N + Q:N + Q + 2], ints[N + Q + 2:]
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nn3d_compact_launch(
             dst.data_ptr(), dst_valid.data_ptr(), N,
-            None if src_valid is None else src_valid.data_ptr(), Q,
+            src_valid.data_ptr() if masked else None, Q, int(masked),
             dst4.data_ptr(), dlist.data_ptr(), qlist.data_ptr(), counts.data_ptr(),
-            stream)
+            tile_counts.data_ptr() if two_pass else None, stream)
     _raise_on(lib, err, "nn3d_compact")
     nn3d_prepare.launches += 1
-    return Nn3dPlan(dst, dst_valid, src_valid, dst4, dlist,
-                    None if src_valid is None else qlist, counts)
+    nn3d_prepare.count_launches += two_pass
+    return Nn3dPlan(dst, dst_valid, src_valid, dst4, dlist, qlist if masked else None,
+                    counts)
 
 
 def nn3d_search(src: torch.Tensor, plan: Nn3dPlan) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,4 +261,5 @@ def nn3d(src: torch.Tensor, dst: torch.Tensor, dst_valid: torch.Tensor,
 
 
 nn3d_prepare.launches = 0
+nn3d_prepare.count_launches = 0
 nn3d_search.launches = 0

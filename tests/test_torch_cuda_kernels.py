@@ -11,11 +11,14 @@ its own in the same order on both sides and takes the (dist, idx)
 lexicographic minimum. Cases: K1 at the path's shapes, at its valid-prefix
 call (the BOW and RGB-D slices' end states), and at edge tiles (Q and W off every tile multiple, with ties from
 duplicated rows); K2 at the path's shapes and edges, each with and without
-a query mask, and its compaction."""
+a query mask, and its compaction, also at the edges of its tiles
+(rtabmap_tpu_torch/ops/cuda/compact_cases.py) with flags at a byte offset
+that is not a multiple of 16."""
 import numpy as np
 import pytest
 import torch
 
+from rtabmap_tpu_torch.ops.cuda import compact_cases as CC
 from rtabmap_tpu_torch.ops.cuda import nn3d as K2
 from rtabmap_tpu_torch.ops.cuda import vocab_knn as V
 
@@ -177,3 +180,38 @@ def test_nn3d_kernel_query_mask(name):
     assert torch.equal(plan.dst4[:d4.shape[0]], d4)
     assert torch.equal(plan.dlist[:d4.shape[0]], dl)
     assert torch.equal(plan.qlist, ql)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 5], ids=["aligned", "offset-5"])
+@pytest.mark.parametrize("name", CC.NAMES)
+def test_nn3d_compact_tile_edges(name, offset):
+    """The compaction kernel at its tile edges, its flags starting
+    ``offset`` bytes into a larger tensor: equal to its plain version and
+    to numpy; one counted launch a plan, which ran the count pass where
+    the flags span more than ``COMPACT_ONE_PASS_TILES`` tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    points, flags, q_flags = CC.flag_case(name)
+    dst = torch.from_numpy(points).cuda()
+    valid, src_valid = CC.on_device(flags, "cuda", offset), CC.on_device(q_flags, "cuda", offset)
+    assert (valid.data_ptr() % 16 != 0) == (offset != 0)
+    before = K2.nn3d_prepare.launches, K2.nn3d_prepare.count_launches
+    plan = K2.nn3d_prepare(dst, valid, src_valid)
+    torch.cuda.synchronize()
+    assert (K2.nn3d_prepare.launches, K2.nn3d_prepare.count_launches) == (
+        before[0] + 1, before[1] + CC.two_pass(flags, q_flags))
+    d4, dl, ql, counts = K2.nn3d_compact_reference(dst, valid, src_valid)
+    e_dst4, e_dlist, e_qlist, e_counts = CC.expected(points, flags, q_flags)
+    n = d4.shape[0]
+    got = plan.counts.cpu().tolist()
+    assert got[0] == int(counts[0]) == e_counts[0]
+    assert torch.equal(plan.dst4[:n], d4) and torch.equal(plan.dlist[:n], dl)
+    np.testing.assert_array_equal(plan.dst4[:n].cpu().numpy(), e_dst4)
+    np.testing.assert_array_equal(plan.dlist[:n].cpu().numpy(), e_dlist)
+    if q_flags is None:
+        assert plan.qlist is None
+    else:
+        assert got[1] == int(counts[1]) == e_counts[1]
+        assert torch.equal(plan.qlist, ql)
+        np.testing.assert_array_equal(plan.qlist.cpu().numpy(), e_qlist)

@@ -28,6 +28,7 @@ from rtabmap_tpu.ops import cloud as JCL
 from rtabmap_tpu.ops import icp as JICP
 from rtabmap_tpu.ops.pallas.nn3d import pallas_nn3d
 from rtabmap_tpu_torch.ops import icp as ICP
+from rtabmap_tpu_torch.ops.cuda import compact_cases as CC
 from rtabmap_tpu_torch.ops.cuda import nn3d as K2
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -108,6 +109,25 @@ def test_nn3d_plain_query_mask(name):
         assert np.all(np.isinf(d)) and np.all(i == 0)
     else:
         np.testing.assert_allclose(d[src_valid], dp, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name", CC.NAMES)
+def test_nn3d_compact_reference_tile_edges(name):
+    """The plain compaction (what the card's kernel is held to) at the
+    kernel's tile edges against numpy: exact."""
+    points, flags, q_flags = CC.flag_case(name)
+    dst4, dlist, qlist, counts = K2.nn3d_compact_reference(
+        torch.from_numpy(points), torch.from_numpy(flags),
+        None if q_flags is None else torch.from_numpy(q_flags))
+    e_dst4, e_dlist, e_qlist, e_counts = CC.expected(points, flags, q_flags)
+    np.testing.assert_array_equal(dst4.numpy(), e_dst4)
+    np.testing.assert_array_equal(dlist.numpy(), e_dlist)
+    assert dlist.dtype == torch.int32 and counts.tolist() == list(e_counts)
+    if q_flags is None:
+        assert qlist is None
+    else:
+        assert qlist.dtype == torch.int32
+        np.testing.assert_array_equal(qlist.numpy(), e_qlist)
 
 
 def _scan_pair():
