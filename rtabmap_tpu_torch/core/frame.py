@@ -2,13 +2,13 @@
 
 Port of ``rtabmap_tpu/core/frame.py`` for the classical GFTT/BRIEF path:
 ``FrameFeatures`` (fixed-K struct of tensors, the unit of quantization),
-``EnvSensor``, ``extract_features`` and ``FeatureExtractor``. Strategies whose detector
-or descriptor is not ported yet, and the learned strategies, raise
-``NotImplementedError``.
+``SensorData``, ``EnvSensor``, ``extract_features`` and
+``FeatureExtractor``. Strategies whose detector or descriptor is not
+ported yet, and the learned strategies, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +34,16 @@ ENV_SENSOR_AMBIENT_AIR_PRESSURE = 3    # hPa
 ENV_SENSOR_AMBIENT_LIGHT = 4           # lx
 ENV_SENSOR_AMBIENT_RELATIVE_HUMIDITY = 5  # %
 ENV_SENSOR_CUSTOM1 = 6
+
+
+class SensorData(NamedTuple):
+    """One input frame (host-side container; arrays may be numpy or tensors)."""
+
+    gray: object             # (H,W) float32 [0,1]
+    depth: Optional[object]  # (H,W) metres, 0 = invalid; None for stereo
+    right: Optional[object]  # (H,W) right image of a stereo pair; None for RGB-D
+    stamp: float = 0.0
+    id: int = 0
 
 
 class FrameFeatures(NamedTuple):

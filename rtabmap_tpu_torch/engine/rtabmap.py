@@ -382,6 +382,9 @@ class Rtabmap:
                 sig.velocity = np.asarray(velocity, np.float32)
             if gps is not None:
                 sig.gps = np.asarray(gps, np.float64)  # geodetic degrees: f64
+            if raw is not None and self.memory.cor_type == 1:
+                # optical-flow correspondences (Vis/CorType 1) need the pixels
+                sig.image = to_numpy(raw[0])
             if raw is not None and self.bin_data_kept and self.memory.db is not None:
                 # raw sensor data kept with the node (Mem/BinDataKept), copied
                 # to the host here, compressed on the store's writer thread

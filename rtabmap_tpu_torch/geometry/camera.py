@@ -1,8 +1,10 @@
 """Pinhole camera model: intrinsics + projection / backprojection.
 
 Port of the parts of ``rtabmap_tpu/geometry/camera.py`` that the
-appearance-only and RGB-D paths and the renderer reach (no distortion
-model or stereo rectification yet). Intrinsics are host floats
+appearance-only, RGB-D and stereo paths and the renderer reach: the
+pinhole model, the ideal (pre-rectified) stereo pair and the disparity
+conversions. The distortion model, rectification and the stereo yaml come
+with the calibration slice. Intrinsics are host floats
 holding float32 values, so device code folds them in as scalars.
 """
 from __future__ import annotations
@@ -31,6 +33,35 @@ class CameraModel(NamedTuple):
             None if dist is None else np.asarray(dist, np.float32),
             None if local_transform is None else np.asarray(local_transform, np.float32),
         )
+
+
+class StereoCameraModel(NamedTuple):
+    """A rectified stereo pair: both cameras share the intrinsics; the right
+    one sits ``baseline`` metres along the left one's x axis. ``R``/``T``
+    (the left->right extrinsics of an unrectified pair) stay None here."""
+    left: CameraModel
+    right: CameraModel
+    baseline: float                  # metres
+    R: Optional[np.ndarray] = None   # (3,3)
+    T: Optional[np.ndarray] = None   # (3,)
+
+    @staticmethod
+    def make(fx, fy, cx, cy, baseline, width=0, height=0, local_transform=None):
+        cam = CameraModel.make(fx, fy, cx, cy, width, height, local_transform=local_transform)
+        return StereoCameraModel(cam, cam, float(np.float32(baseline)))
+
+
+def disparity_to_depth(disparity: torch.Tensor, stereo: StereoCameraModel) -> torch.Tensor:
+    """fx * baseline / disparity where the disparity is positive, else 0."""
+    valid = disparity > 0
+    fb = float(np.float32(stereo.left.fx) * np.float32(stereo.baseline))
+    return torch.where(valid, fb / torch.where(valid, disparity, torch.ones_like(disparity)),
+                       torch.zeros_like(disparity))
+
+
+def depth_to_disparity(depth: torch.Tensor, stereo: StereoCameraModel) -> torch.Tensor:
+    """fx * baseline / depth where the depth is positive, else 0."""
+    return disparity_to_depth(depth, stereo)
 
 
 def project(pts_cam: torch.Tensor, cam: CameraModel):

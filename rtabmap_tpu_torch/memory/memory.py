@@ -21,7 +21,9 @@ loads it from there. In localization mode (``Mem/IncrementalMemory``
 false) the map is frozen: signatures leaving the STM are deleted instead
 of joining WM, and rehearsal only accumulates weight.
 
-Later slices: the optical-flow (``Vis/CorType`` 1), SuperGlue
+``Vis/CorType`` 1 tracks A's keypoints into B's image by KLT where both
+signatures kept their image (the engine keeps it for that mode), else
+registers by descriptors, as the twin does. Later slices: the SuperGlue
 (``Vis/CorNNType`` 6) and GMS (``Vis/CorNNType`` 7) correspondence modes.
 """
 from __future__ import annotations
@@ -94,6 +96,7 @@ class Signature:
     gt_pose: Optional[np.ndarray] = None
     velocity: Optional[np.ndarray] = None
     gps: Optional[np.ndarray] = None
+    image: Optional[np.ndarray] = None   # (H,W) gray, kept only for Vis/CorType 1
 
 
 class IdList(list):
@@ -272,6 +275,9 @@ class Memory:
         self.cor_nndr = float(p["Vis/CorNNDR"])
         self.cor_nn_type = int(p["Vis/CorNNType"])     # 6 SuperGlue, 7 GMS
         self.guess_win_size = float(p["Vis/CorGuessWinSize"])
+        self.flow_win_size = int(p["Vis/CorFlowWinSize"])
+        self.flow_iterations = int(p["Vis/CorFlowIterations"])
+        self.flow_max_level = int(p["Vis/CorFlowMaxLevel"])
         self.last_registration: Dict[str, float] = {}
         self.node_capacity = node_capacity
         self.K = words_per_frame
@@ -688,10 +694,6 @@ class Memory:
 
     # --------------------------------------------------- pairwise registration
     def _check_correspondence_mode(self):
-        if self.cor_type == 1:
-            raise NotImplementedError(
-                "optical-flow correspondences (Vis/CorType=1) are not ported yet; they "
-                "come with the ops/flow.py slice")
         if self.cor_nn_type == 6:
             raise NotImplementedError(
                 "SuperGlue matching (Vis/CorNNType=6) is not ported yet; it comes with "
@@ -715,10 +717,15 @@ class Memory:
         """Signature registration A -> B by stored-descriptor mutual NNDR and
         PnP-RANSAC; with a guess and ``guess_window`` the candidates are
         restricted to Vis/CorGuessWinSize pixels around the projection.
+        With Vis/CorType 1 and both signatures' images kept, A's keypoints
+        are tracked into B's image instead (``_compute_transform_flow``).
         Returns (T_ab or None, covariance, inliers)."""
         self._check_correspondence_mode()
         a, b = self.signatures[from_id], self.signatures[to_id]
         has_guess = guess is not None
+        if self.cor_type == 1 and a.image is not None and b.image is not None:
+            return self._compute_transform_flow(a, b, cam, guess, generator, iters,
+                                                reproj_px, min_inliers, indices)
         guess_t = (self._as_dev(guess, torch.float32) if has_guess
                    else T.identity(device=self.device))
         use_window = bool(guess_window) and has_guess and self.guess_win_size > 0
@@ -764,8 +771,16 @@ class Memory:
         batched registration and non-blocking copies of its outputs into
         pinned host memory, and returns handles for
         ``collect_transform_batch``. The target may be the frame whose
-        deferred create is still in flight (its device tensors are used)."""
+        deferred create is still in flight (its device tensors are used).
+        With Vis/CorType 1 each pair registers on its own, as the twin's
+        batch does (``compute_transform``), and the handles hold the results."""
         self._check_correspondence_mode()
+        if self.cor_type == 1:
+            return ("done", [self.compute_transform(
+                i, to_id, cam, generator, guess=g, min_inliers=min_inliers,
+                reproj_px=reproj_px, iters=iters, guess_window=guess_window,
+                indices=None if indices is None else tuple(x[k] for x in indices))
+                for k, (i, g) in enumerate(zip(from_ids, guesses))])
         A = [self.signatures[i] for i in from_ids]
         b_desc, b_ok3, b_uv, b_pts = self._b_side(self.signatures[to_id])
         stack = lambda attr, dt: self._as_dev(np.stack([getattr(a, attr) for a in A]), dt)
@@ -786,6 +801,8 @@ class Memory:
     def collect_transform_batch(self, handles):
         """Blocking half: one synchronization, then per-pair results (see
         ``compute_transform_batch``)."""
+        if handles[0] == "done":
+            return handles[1]
         (flat,), ev = handles
         if ev is not None:
             ev.synchronize()
@@ -802,6 +819,47 @@ class Memory:
         self._record_registration_host(int(last[49]), last[12:48].reshape(6, 6),
                                        int(last[50]), float(last[51]), float(last[52]))
         return out
+
+    def _compute_transform_flow(self, a: Signature, b: Signature, cam: C.CameraModel, guess,
+                                generator, iters: int, reproj_px: float, min_inliers: int,
+                                indices=None):
+        """Optical-flow correspondences (Vis/CorType 1, the reference's
+        RegistrationVis flow path): A's keypoints LK-tracked into B's image,
+        seeded by their projection under the guess, then PnP-RANSAC on A's
+        3D. Vis/CorFlowWinSize is the whole window (klt_track takes its
+        radius); with a guess one pyramid level and no motion bound (a loop
+        closure moves far in the image)."""
+        from rtabmap_tpu_torch.ops.flow import klt_track
+
+        img_a = self._as_dev(a.image, torch.float32)
+        img_b = self._as_dev(b.image, torch.float32)
+        uv_a = self._as_dev(a.uv, torch.float32)
+        pts_a = self._as_dev(a.pts3d, torch.float32)
+        valid = self._as_dev(a.valid3d, torch.bool)
+        guess_t = guess_uv = None
+        if guess is not None:
+            guess_t = self._as_dev(guess, torch.float32)
+            xb = T.apply(T.inverse(guess_t), pts_a)
+            uv_proj, z = C.project(xb, cam)
+            guess_uv = torch.where((z > 0)[:, None], uv_proj, uv_a)
+        uv_b, ok = klt_track(img_a, img_b, uv_a, valid, guess_uv=guess_uv,
+                             win=max(self.flow_win_size // 2, 2), iters=self.flow_iterations,
+                             levels=1 if guess is not None else self.flow_max_level,
+                             max_move=1e9 if guess is not None else 100.0)
+        in_frame = ((uv_b[:, 0] >= 0) & (uv_b[:, 0] < cam.width)
+                    & (uv_b[:, 1] >= 0) & (uv_b[:, 1] < cam.height))
+        w = valid & ok & in_frame
+        res = R.ransac_pnp(pts_a, uv_b, w, cam, generator, iters=iters, reproj_px=reproj_px,
+                           min_inliers=min_inliers, guess=guess_t, indices=indices)
+        flat = torch.cat([res.transform.reshape(-1), res.covariance.reshape(-1),
+                          torch.stack([res.success.float(), res.num_inliers.float(),
+                                       w.sum().float()])]).cpu().numpy()
+        transform, cov = flat[:12].reshape(3, 4), flat[12:48].reshape(6, 6)
+        success, n_inl, n_match = flat[48:]
+        self._record_registration_host(int(n_inl), cov, int(n_match))
+        if not success:
+            return None, np.eye(6) * 9999.0, int(n_inl)
+        return transform.copy(), cov.copy(), int(n_inl)
 
     def _record_registration_host(self, inl: int, cov, matches: int, mean_dist: float = 0.0,
                                   distribution: float = 0.0):

@@ -4,7 +4,8 @@ Port of ``rtabmap_tpu/odometry/f2m.py`` (the reference's ``OdometryF2M``:
 registration of each frame against a local map of up to
 ``OdomF2M/MaxSize`` points, keyframes on the inlier ratio
 ``Odom/KeyFrameThr``, map insert and oldest-first cull, local bundle
-adjustment over the last keyframes, the constant-velocity guess).
+adjustment over the last keyframes, the constant-velocity guess, and the
+gravity alignment of a tracked pose to an IMU orientation).
 
 The map, its descriptors and the keyframe window live on the device in
 fixed-capacity tensors. Where the JAX twin selects the keyframe branch
@@ -264,19 +265,25 @@ class OdometryF2M:
         self.generator = torch.Generator().manual_seed(seed)   # RANSAC draws (CPU)
         self.lost = False
 
-    def process(self, frame: FrameFeatures, imu_quat=None):
-        if imu_quat is not None:
-            raise NotImplementedError(
-                "IMU gravity alignment is not ported yet; it comes with "
-                "odometry/imu_filter.py (the stereo/IMU slice)")
+    def process(self, frame: FrameFeatures, imu_quat=None, indices=None):
+        """Track ``frame``; with ``imu_quat`` (the IMU filter's orientation
+        [x,y,z,w]) a tracked pose takes the IMU's roll and pitch.
+        ``indices`` replaces RANSAC's drawn samples (see ``odom_step``)."""
         self.state, res = odom_step(
             self.state, frame, self.cam, self.generator, nndr=self.nndr,
             reproj_px=self.reproj_px, min_inliers=self.min_inliers,
-            keyframe_thr=self.keyframe_thr)
+            keyframe_thr=self.keyframe_thr, indices=indices)
         if res.success and self.ba_enabled and res.keyframe_added:
             # the refined newest-keyframe pose becomes the output pose
             self.state = local_ba_step(self.state, self.cam)
             res = res._replace(pose=self.state.pose)
+        if res.success and imu_quat is not None:
+            from rtabmap_tpu_torch.odometry.imu_filter import apply_gravity_alignment
+
+            q = torch.as_tensor(imu_quat, dtype=torch.float32, device=self.device)
+            aligned = apply_gravity_alignment(res.pose, q)
+            self.state = self.state._replace(pose=aligned)
+            res = res._replace(pose=aligned)
         self.lost = not res.success
         info = {"matches": res.num_matches, "inliers": res.num_inliers,
                 "keyframe": res.keyframe_added}

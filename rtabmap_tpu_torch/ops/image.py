@@ -1,8 +1,8 @@
-"""2D image ops that GFTT/BRIEF extraction reaches.
+"""2D image ops that GFTT/BRIEF extraction and LK tracking reach.
 
 Port of the matching parts of ``rtabmap_tpu/ops/image.py``: grayscale,
-separable 'same' convolutions (Gaussian blur, Sobel), NMS max-pool and the
-point samplers. Images are float32 ``(..., H, W)`` in [0,1].
+separable 'same' convolutions (Gaussian blur, Sobel), the image pyramid,
+NMS max-pool and the point samplers. Images are float32 ``(..., H, W)`` in [0,1].
 
 The separable convolution keeps the JAX package's banded-matrix form: the
 same (n, n) band matrices, one product per axis, so both packages sum the
@@ -81,6 +81,26 @@ def sobel(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     gx = _sep_conv(img, np.array([-0.5, 0.0, 0.5]), np.array([0.25, 0.5, 0.25]))
     gy = _sep_conv(img, np.array([0.25, 0.5, 0.25]), np.array([-0.5, 0.0, 0.5]))
     return gx, gy
+
+
+def decimate(img: torch.Tensor, d: int) -> torch.Tensor:
+    """Stride-subsample by an integer factor on the trailing H,W dims."""
+    if d <= 1:
+        return img
+    return img[..., ::d, ::d]
+
+
+def downsample2(img: torch.Tensor) -> torch.Tensor:
+    """2x blur + decimate, one pyramid step."""
+    return decimate(gaussian_blur(img, sigma=1.0, radius=2), 2)
+
+
+def pyramid(img: torch.Tensor, levels: int):
+    """[img, downsample2(img), ...], ``levels`` images."""
+    out = [img]
+    for _ in range(levels - 1):
+        out.append(downsample2(out[-1]))
+    return out
 
 
 def sample_at(img: torch.Tensor, uv: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:

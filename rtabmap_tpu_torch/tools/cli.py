@@ -1,9 +1,11 @@
-"""The store tools: what a user runs on a finished map store.
+"""The store and dataset tools: what a user runs on a finished map store
+or a recorded sequence.
 
-Port of the store tools of ``rtabmap_tpu/tools/cli.py`` (the reference's
-rtabmap-info, -reprocess, -export, -recovery, -detectMoreLoopClosures,
--globalBundleAdjustment and -reduceGraph), with the twin's argument
-syntax. Run as
+Port of the store and dataset tools of ``rtabmap_tpu/tools/cli.py`` (the
+reference's rtabmap-info, -reprocess, -export, -recovery,
+-detectMoreLoopClosures, -globalBundleAdjustment and -reduceGraph; the
+TUM, KITTI, EuRoC and CID-SIMS dataset tools and stereoEval), with the
+twin's argument syntax. Run as
 
     python -m rtabmap_tpu_torch.tools.cli <tool> [args...] [--device cpu]
 
@@ -414,6 +416,160 @@ def tool_reduce_graph(argv: List[str]):
     return len(keep)
 
 
+# ----------------------------------------------------------- dataset tools
+
+
+def _run_dataset_tool(ds, params, dev, out_db, max_frames, **kw):
+    """``run_dataset`` over a reader, into a store at ``out_db`` when given."""
+    from rtabmap_tpu_torch.memory.db import Database
+    from rtabmap_tpu_torch.tools.dataset_runner import run_dataset
+
+    db = Database(out_db) if out_db else None
+    out = run_dataset(iter(ds), ds.camera, params, db=db, max_frames=max_frames,
+                      device=dev, **kw)
+    if "ate_slam" in out:
+        print(f"ATE RMSE (slam): {out['ate_slam']:.4f} m")
+    if "ate_odom" in out:
+        print(f"ATE RMSE (odom): {out['ate_odom']:.4f} m")
+    if "kitti_t_err_pct" in out:
+        print(f"KITTI t_err: {out['kitti_t_err_pct']:.2f}%  "
+              f"r_err: {out['kitti_r_err_deg_per_m']:.4f} deg/m")
+    if db:
+        out["slam"].close()
+        db.close()
+    return out
+
+
+def tool_rgbd_dataset(argv: List[str]):
+    """TUM RGB-D benchmark (rtabmap-rgbd_dataset):
+    ``rgbd_dataset [--Group/Name value ...] <path> [out.db] [max_frames]``."""
+    from rtabmap_tpu_torch.datasets.readers import TumRgbdDataset
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    dev, argv = _device(argv)
+    params, rest = Parameters.parse_arguments(argv)
+    return _run_dataset_tool(TumRgbdDataset(rest[0]), params, dev,
+                             rest[1] if len(rest) > 1 else None,
+                             int(rest[2]) if len(rest) > 2 else 0)
+
+
+def tool_kitti_dataset(argv: List[str]):
+    """KITTI odometry benchmark (rtabmap-kitti_dataset), stereo, with the
+    KITTI errors: ``kitti_dataset [--Group/Name value ...] <sequence dir>
+    [poses.txt] [out.db] [max_frames]``."""
+    from rtabmap_tpu_torch.datasets.readers import KittiDataset
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    dev, argv = _device(argv)
+    params, rest = Parameters.parse_arguments(argv)
+    ds = KittiDataset(rest[0], rest[1] if len(rest) > 1 else None)
+    return _run_dataset_tool(ds, params, dev, rest[2] if len(rest) > 2 else None,
+                             int(rest[3]) if len(rest) > 3 else 0,
+                             stereo_model=ds.stereo, kitti_errors=True)
+
+
+def tool_euroc_dataset(argv: List[str]):
+    """EuRoC benchmark (rtabmap-euroc_dataset), stereo:
+    ``euroc_dataset [--Group/Name value ...] <path> [out.db] [max_frames]``."""
+    from rtabmap_tpu_torch.datasets.readers import EurocDataset
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    dev, argv = _device(argv)
+    params, rest = Parameters.parse_arguments(argv)
+    ds = EurocDataset(rest[0])
+    return _run_dataset_tool(ds, params, dev, rest[1] if len(rest) > 1 else None,
+                             int(rest[2]) if len(rest) > 2 else 0, stereo_model=ds.stereo)
+
+
+def tool_cid_sims_dataset(argv: List[str]):
+    """CID-SIMS ground-robot RGB-D benchmark (rtabmap-cid_sims_dataset):
+    ``cid_sims_dataset [--gt] [--odom] [--imu 0|1] [--max_time_diff S]
+    <path> [out.db] [max_frames]``: ``--gt`` reads groundtruth.txt,
+    ``--odom`` the wheel odometry (re-seeds a lost odometry), ``--imu``
+    imu.txt through the Madgwick (0) or complementary (1) filter."""
+    from rtabmap_tpu_torch.datasets.readers import CidSimsDataset
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    dev, argv = _device(argv)
+    params, rest = Parameters.parse_arguments(argv)
+    use_gt = use_odom = False
+    imu_filter = -1
+    max_time_diff = 0.1
+    pos = []
+    i = 0
+    while i < len(rest):
+        a = rest[i]
+        if a == "--gt":
+            use_gt = True
+        elif a == "--odom":
+            use_odom = True
+        elif a == "--imu":
+            i += 1
+            imu_filter = int(rest[i])
+        elif a == "--max_time_diff":
+            i += 1
+            max_time_diff = float(rest[i])
+        elif a != "--quiet":
+            pos.append(a)
+        i += 1
+    ds = CidSimsDataset(pos[0], use_odom=use_odom, use_imu=imu_filter >= 0,
+                        max_time_diff=max_time_diff)
+    if not use_gt:
+        ds.gt = []
+    return _run_dataset_tool(ds, params, dev, pos[1] if len(pos) > 1 else None,
+                             int(pos[2]) if len(pos) > 2 else 0,
+                             imu_method="madgwick" if imu_filter != 1 else "complementary")
+
+
+def tool_stereo_eval(argv: List[str]):
+    """Stereo matching on a rectified pair (rtabmap-stereoEval):
+    ``stereo_eval <left.png> <right.png> [max_disp=64]``; prints the
+    sparse-LK and dense-SGBM disparity statistics and their agreement.
+    Returns them, with the disparities and the SGBM's ms."""
+    import time
+
+    from rtabmap_tpu_torch.datasets.png import read_png
+    from rtabmap_tpu_torch.ops import features as F
+    from rtabmap_tpu_torch.ops import image as im
+    from rtabmap_tpu_torch.ops import stereo as S
+
+    dev, argv = _device(argv)
+
+    def load(p):
+        a = read_png(p)
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return im.rgb_to_gray(t) if a.ndim == 3 else t.float() / 255.0
+
+    left, right = load(argv[0]), load(argv[1])
+    max_disp = int(argv[2]) if len(argv) > 2 else 64
+    kps, _ = F.detect_and_describe(left, 256)
+    disp, ok = S.lk_stereo_disparity(left, right, kps.uv, kps.valid,
+                                     max_disparity=float(max_disp))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    dense_t = S.dense_sgbm_disparity(left, right, max_disparity=max_disp)
+    sync()
+    sgbm_ms = (time.perf_counter() - t0) * 1000.0
+    dense, d_sparse, okn = dense_t.cpu().numpy(), disp.cpu().numpy(), ok.cpu().numpy()
+    uv = kps.uv.cpu().numpy().astype(int)
+    agree = []
+    for i in np.where(okn)[0]:
+        u, v = uv[i]
+        if 0 <= v < dense.shape[0] and 0 <= u < dense.shape[1] and dense[v, u] > 0:
+            agree.append(abs(dense[v, u] - d_sparse[i]))
+    out = {
+        "sparse_n": int(okn.sum()),
+        "sparse_mean_disp": float(d_sparse[okn].mean()) if okn.any() else 0.0,
+        "dense_density": float((dense > 0).mean()),
+        "dense_mean_disp": float(dense[dense > 0].mean()) if (dense > 0).any() else 0.0,
+        "sparse_dense_mad_px": float(np.mean(agree)) if agree else -1.0,
+    }
+    print(json.dumps(out, indent=2))
+    return {**out, "sgbm_ms": sgbm_ms, "dense": dense, "sparse": d_sparse, "sparse_ok": okn,
+            "uv": kps.uv.cpu().numpy()}
+
+
 def _later(name: str, slice_: str):
     def tool(argv: List[str]):
         raise NotImplementedError(f"the {name} tool is not ported yet; it comes with {slice_}")
@@ -421,7 +577,6 @@ def _later(name: str, slice_: str):
     return tool
 
 
-_DATASETS = "the dataset-readers slice"
 _LATER = {
     "calibration": "the calibration slice",
     "convert_model": "the learned-model slice",
@@ -431,12 +586,7 @@ _LATER = {
     "epipolar_geometry": "the tools slice",
     "extract_object": "the tools slice",
     "images_joiner": "the tools slice",
-    "stereo_eval": "the stereo slice",
     "vocabulary_comparison": "the tools slice",
-    "rgbd_dataset": _DATASETS,
-    "kitti_dataset": _DATASETS,
-    "euroc_dataset": _DATASETS,
-    "cid_sims_dataset": _DATASETS,
     "import_ref_db": "the reference-format store slice",
     "export_ref_db": "the reference-format store slice",
     "report": "the tools slice",
@@ -457,6 +607,11 @@ TOOLS = {
     "detect_more_loop_closures": tool_detect_more_loop_closures,
     "global_ba": tool_global_ba,
     "reduce_graph": tool_reduce_graph,
+    "rgbd_dataset": tool_rgbd_dataset,
+    "kitti_dataset": tool_kitti_dataset,
+    "euroc_dataset": tool_euroc_dataset,
+    "cid_sims_dataset": tool_cid_sims_dataset,
+    "stereo_eval": tool_stereo_eval,
 }
 
 

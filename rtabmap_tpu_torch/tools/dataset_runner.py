@@ -1,16 +1,21 @@
 """Dataset benchmark loop: camera stream -> odometry -> SLAM -> ATE.
 
 Port of ``run_dataset`` from ``rtabmap_tpu/tools/dataset_runner.py`` (the
-reference's RgbdDataset main loop: odometry, covariance >= 9999 starts a
-new map, the end-of-run ``graph::calcRMSE``) for RGB-D frames: each
-frame's features go through ``OdometryF2M.process`` and
-``Rtabmap.process``, with the frame's laser scan and local grid when it
-carries them. With a map store (``db``) each frame's raw image and
-depth go to ``process`` for the store. ``slam`` continues an engine the
-caller made (e.g. ``Rtabmap.load`` of a store, for a resumed or a
-localization session) with a new odometry. Stereo frames, IMU samples,
-learned feature extraction, the KITTI error metrics and profile traces
-raise ``NotImplementedError`` naming the slice that brings them.
+reference's dataset tools' main loop: odometry, covariance >= 9999 starts
+a new map, the end-of-run ``graph::calcRMSE``, KittiDataset's
+calcKittiSequenceErrors). RGB-D frames are extracted with depth; stereo
+frames (a right image and ``stereo_model``) by GFTT/BRIEF on the left
+image and LK disparities at its keypoints (``ops/stereo.py``). A frame's
+IMU samples (at most ``IMU_PAD``) are integrated from the previous
+frame's orientation by the Madgwick or complementary filter, and the
+tracked pose takes its roll and pitch. Each frame's features go through
+``OdometryF2M.process`` and ``Rtabmap.process``, with the frame's laser
+scan and local grid when it carries them. With a map store (``db``) each
+frame's raw image and depth go to ``process`` for the store. ``slam``
+continues an engine the caller made (e.g. ``Rtabmap.load`` of a store,
+for a resumed or a localization session) with a new odometry. Learned
+feature extraction (``Kp/DetectorStrategy`` 11) and profile traces raise
+``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -21,6 +26,10 @@ import numpy as np
 import torch
 
 from rtabmap_tpu_torch.device import DeviceLike, resolve_device
+
+# IMU samples integrated per frame at most (the twin pads each frame's batch
+# to this static length)
+IMU_PAD = 64
 
 
 def _later(what: str, slice_: str):
@@ -33,25 +42,29 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
                 imu_method: str = "madgwick", device: DeviceLike = None,
                 seed: int = 0, slam=None) -> Dict:
     """Run odometry + SLAM over ``frames`` (``datasets.readers.Frame``
-    records with depth) on ``device`` (None = the CUDA card); ``seed``
-    shifts the RANSAC generators of the odometry (seed) and of a new
-    engine (42 + seed); ``slam`` is an engine to continue instead (its
-    own ``db`` is used). Returns the metrics, the trajectories and
-    per-frame host times in ms: ``extract_ms``, ``odom_ms`` (ends in the
-    odometry's fetch of the pose) and ``process_ms`` (ends in a device
-    synchronize)."""
-    from rtabmap_tpu_torch.core.frame import FeatureExtractor
+    records with depth, or a right image with ``stereo_model``) on
+    ``device`` (None = the CUDA card); ``seed`` shifts the RANSAC
+    generators of the odometry (seed) and of a new engine (42 + seed);
+    ``slam`` is an engine to continue instead (its own ``db`` is used).
+    ``imu_method`` is "madgwick" or "complementary"; ``kitti_errors``
+    adds the KITTI translation and rotation errors. Returns the metrics,
+    the trajectories, each frame's IMU orientation (``imu_quat``, None
+    without samples) and whether it was tracked (``tracked``), and
+    per-frame host times in ms: ``extract_ms`` (with
+    the stereo disparities), ``imu_ms`` (frames with samples),
+    ``odom_ms`` (ends in the odometry's fetch of the pose) and
+    ``process_ms`` (ends in a device synchronize)."""
+    from rtabmap_tpu_torch.core.frame import FeatureExtractor, FrameFeatures
     from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
     from rtabmap_tpu_torch.geometry import transform as T
     from rtabmap_tpu_torch.odometry.f2m import OdometryF2M
+    from rtabmap_tpu_torch.odometry.imu_filter import integrate_imu
+    from rtabmap_tpu_torch.ops import features as F
+    from rtabmap_tpu_torch.ops.stereo import keypoints_3d_from_stereo
     from rtabmap_tpu_torch.utils import metrics
     from rtabmap_tpu_torch.utils.params import Parameters
 
     dev = resolve_device(device)
-    if stereo_model is not None:
-        raise _later("stereo input", "the stereo/IMU slice (ops/stereo.py)")
-    if kitti_errors:
-        raise _later("the KITTI sequence errors", "the dataset-readers slice")
     p = params or Parameters()
     if str(p["Tpu/ProfileDir"]):
         raise _later("Tpu/ProfileDir traces",
@@ -68,21 +81,34 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
     fe = FeatureExtractor(camera, p, max_kp=max_kp, device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    est_odom, est_stamps, gt_poses = [], [], []
-    times = {"extract_ms": [], "odom_ms": [], "process_ms": []}
+    def extract_stereo(gray, right):
+        # GFTT/BRIEF on the left image, 3D from LK disparities at its keypoints
+        gl, gr = fe._image(gray), fe._image(right)
+        kps, desc = F.detect_and_describe(gl, max_kp)
+        pts, ok = keypoints_3d_from_stereo(kps.uv, kps.valid, gl, gr, stereo_model)
+        return FrameFeatures(uv=kps.uv, desc=desc, pts3d=pts, valid=kps.valid, valid3d=ok,
+                             angle=kps.angle, response=kps.response)
+
+    est_odom, est_stamps, gt_poses, imu_quats, tracked = [], [], [], [], []
+    times = {"extract_ms": [], "imu_ms": [], "odom_ms": [], "process_ms": []}
     n_loops = n_lost = 0
     prev_wheel = None   # external odometry (CidSimsDataset --odom fallback)
+    imu_q = prev_imu_t = None
     t0 = time.time()
     for i, fr in enumerate(frames):
         if max_frames and i >= max_frames:
             break
-        if fr.imu:
-            raise _later("IMU gravity alignment", "the stereo/IMU slice "
-                         "(odometry/imu_filter.py)")
-        if fr.depth is None:
-            raise _later("frames without depth (stereo)", "the stereo/IMU slice")
         _t = time.perf_counter()
-        feat, _ = fe.extract(fr.gray, fr.depth)
+        stereo_used = False
+        if fr.depth is not None:
+            feat, _ = fe.extract(fr.gray, fr.depth)
+        elif fr.right is not None:
+            if stereo_model is None:
+                raise ValueError("a frame with a right image needs stereo_model")
+            feat = extract_stereo(fr.gray, fr.right)
+            stereo_used = True
+        else:
+            raise ValueError("frame has neither depth nor right image")
         sync()
         extract_ms = (time.perf_counter() - _t) * 1000.0
         capture_stats = {
@@ -90,13 +116,33 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
             "TimingMem/Descriptors extraction/ms": 0.0, "TimingMem/Keypoints 3D/ms": 0.0,
             "TimingMem/Keypoints 3D motion/ms": 0.0, "TimingMem/Subpixel/ms": 0.0,
             "TimingMem/Post decimation/ms": 0.0, "TimingMem/Rectification/ms": 0.0,
-            "TimingMem/Stereo correspondences/ms": 0.0,
+            "TimingMem/Stereo correspondences/ms": extract_ms if stereo_used else 0.0,
             "TimingMem/Scan filtering/ms": 0.0, "TimingMem/Occupancy grid/ms": 0.0,
             "TimingMem/Markers detection/ms": 0.0, "Memory/Images buffered/": 0}
+        imu_quat = None
+        if fr.imu:
+            # the frame's samples since the previous frame, integrated from
+            # the previous orientation (dt 0 for the very first sample)
+            _t = time.perf_counter()
+            batch = fr.imu[:IMU_PAD]
+            g_b = np.zeros((len(batch), 3), np.float32)
+            a_b = np.zeros((len(batch), 3), np.float32)
+            dt_b = np.zeros((len(batch),), np.float32)
+            for s_i, (ts, gy, ac) in enumerate(batch):
+                dt_b[s_i] = max(ts - prev_imu_t, 0.0) if prev_imu_t is not None else 0.0
+                prev_imu_t = ts
+                g_b[s_i], a_b[s_i] = gy, ac
+            qs = integrate_imu(*(torch.from_numpy(x).to(dev) for x in (g_b, a_b, dt_b)),
+                               q0=imu_q, method=imu_method)
+            imu_q = imu_quat = qs[-1]
+            sync()
+            times["imu_ms"].append((time.perf_counter() - _t) * 1000.0)
+        imu_quats.append(None if imu_quat is None else imu_quat.cpu().numpy())
         _t = time.perf_counter()
-        pose, cov, info = odom.process(feat)
+        pose, cov, info = odom.process(feat, imu_quat=imu_quat)
         pose = None if pose is None else pose.cpu().numpy()
         odom_ms = (time.perf_counter() - _t) * 1000.0
+        tracked.append(pose is not None)
         if pose is None:
             n_lost += 1
             if fr.odom_pose is not None and prev_wheel is not None and est_odom:
@@ -141,13 +187,19 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
     out = {"frames": len(est_odom), "elapsed_s": elapsed,
            "fps": len(est_odom) / max(elapsed, 1e-9), "loops": n_loops, "lost": n_lost,
            "est_odom": np.stack(est_odom) if est_odom else np.zeros((0, 3, 4)),
-           "est_slam": est_slam, "stamps": est_stamps, "slam": slam, "odom": odom, **times}
+           "est_slam": est_slam, "stamps": est_stamps, "slam": slam, "odom": odom,
+           "imu_quat": imu_quats, "tracked": tracked, **times}
     have_gt = [k for k, g in enumerate(gt_poses) if g is not None]
     if len(have_gt) >= 5:
         gt = np.stack([gt_poses[k] for k in have_gt])
-        out["ate_odom"] = metrics.ate_rmse(out["est_odom"][have_gt], gt)
-        if est_slam.shape[0] == len(est_odom):
-            out["ate_slam"] = metrics.ate_rmse(est_slam[have_gt], gt)
+        eo = out["est_odom"][have_gt]
+        es = est_slam[have_gt] if est_slam.shape[0] == len(est_odom) else None
+        out["ate_odom"] = metrics.ate_rmse(eo, gt)
+        if es is not None:
+            out["ate_slam"] = metrics.ate_rmse(es, gt)
+        if kitti_errors:
+            out["kitti_t_err_pct"], out["kitti_r_err_deg_per_m"] = \
+                metrics.kitti_sequence_errors(es if es is not None else eo, gt)
     if verbose:
         msg = (f"done: {out['frames']} frames in {elapsed:.1f}s ({out['fps']:.2f} fps), "
                f"{n_loops} loops, {n_lost} lost")

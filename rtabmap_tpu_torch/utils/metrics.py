@@ -1,8 +1,9 @@
 """Trajectory metrics: SE(3)-aligned ATE RMSE and relative pose error.
 
-Port of ``align_umeyama``, ``ate_rmse``, ``gt_error_stats``, ``rpe`` and
-``summarize`` from ``rtabmap_tpu/utils/metrics.py`` (the reference's
-graph::calcRMSE family).
+Port of ``align_umeyama``, ``ate_rmse``, ``gt_error_stats``, ``rpe``,
+``kitti_sequence_errors`` and ``summarize`` from
+``rtabmap_tpu/utils/metrics.py`` (the reference's graph::calcRMSE and
+calcKittiSequenceErrors).
 Host numpy in float64; ``rpe`` composes the per-step relative poses in
 float32 tensors as the JAX twin does. Poses may be arrays or tensors.
 """
@@ -54,6 +55,53 @@ def rpe(est_poses, gt_poses, delta: int = 1) -> Tuple[float, float]:
     re = T.rotation_angle(e).numpy()
     return (float(np.sqrt(np.mean(np.square(te)))),
             float(np.sqrt(np.mean(np.square(re)))))
+
+
+_KITTI_LENGTHS = (100.0, 200.0, 300.0, 400.0, 500.0, 600.0, 700.0, 800.0)
+
+
+def _trajectory_distances(poses) -> np.ndarray:
+    """Distance travelled (m) at each pose, from the first."""
+    t = np.asarray(poses)[:, :3, 3]
+    d = np.zeros(len(t))
+    d[1:] = np.cumsum(np.linalg.norm(np.diff(t, axis=0), axis=1))
+    return d
+
+
+def kitti_sequence_errors(est_poses, gt_poses, step: int = 10) -> Tuple[float, float]:
+    """The KITTI odometry protocol: mean (translation error %, rotation
+    error deg/m) over segments of 100..800 m starting every ``step``
+    frames; (0, 0) when the run is shorter than 100 m."""
+    est = _host(est_poses).astype(np.float64)
+    gt = _host(gt_poses).astype(np.float64)
+    dist = _trajectory_distances(gt)
+
+    def to44(P):
+        out = np.eye(4)
+        out[:3, :4] = P[:3, :4]
+        return out
+
+    def inv(P):
+        out = np.eye(4)
+        out[:3, :3] = P[:3, :3].T
+        out[:3, 3] = -P[:3, :3].T @ P[:3, 3]
+        return out
+
+    t_errs, r_errs = [], []
+    for first in range(0, len(est), step):
+        for length in _KITTI_LENGTHS:
+            # the first frame farther than ``length`` along the path
+            last = int(np.searchsorted(dist, dist[first] + length, side="right"))
+            if last >= len(dist):
+                continue
+            delta_gt = inv(to44(gt[first])) @ to44(gt[last])
+            delta_est = inv(to44(est[first])) @ to44(est[last])
+            err = inv(delta_est) @ delta_gt
+            r_errs.append(np.arccos(np.clip((np.trace(err[:3, :3]) - 1) / 2, -1, 1)) / length)
+            t_errs.append(np.linalg.norm(err[:3, 3]) / length)
+    if not t_errs:
+        return 0.0, 0.0
+    return float(np.mean(t_errs) * 100.0), float(np.degrees(np.mean(r_errs)))
 
 
 def summarize(est_poses, gt_poses) -> Dict[str, float]:

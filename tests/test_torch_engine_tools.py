@@ -287,9 +287,32 @@ def test_reader_recovery_and_pose_tools(store, tmp_path):
                         .all_links()) for D, p in ((Database, str(tmp_path / "r.db")),
                                                    (JDatabase, str(tmp_path / "jr.db"))))
     assert red == jred
-    for name in ("report", "rgbd_dataset", "convert_model"):
+    for name in ("report", "convert_model"):
         with pytest.raises(NotImplementedError, match="slice"):
             CLI.main([name, store])
+    # the dataset tools run: rgbd_dataset on a TUM layout, kitti_dataset on
+    # a stereo layout into a store that Rtabmap.load resumes (stereo frames
+    # store their image and no depth)
+    from rtabmap_tpu_torch.datasets import layouts as L
+
+    tum = str(tmp_path / "rgbd_dataset_freiburg2_synth")
+    L.write_tum(tum, S.loop_trajectory(64)[:3], (160, 120), device="cpu")
+    out = CLI.main(["rgbd_dataset", "--Rtabmap/DetectionRate", "0", tum, "--device", "cpu"])
+    assert out["frames"] == 3 and out["lost"] == 0
+    seq, gt = str(tmp_path / "seq"), str(tmp_path / "poses.txt")
+    L.write_kitti(seq, gt, S.loop_trajectory(64)[:3], (160, 120), (80.0, 80.0, 79.5, 59.5),
+                  0.3, device="cpu")
+    db_path = str(tmp_path / "stereo.db")
+    out = CLI.main(["kitti_dataset", "--Rtabmap/DetectionRate", "0", seq, gt, db_path,
+                    "--device", "cpu"])
+    assert out["frames"] == 3 and out["lost"] == 0 and "kitti_t_err_pct" not in out
+    db = Database(db_path, async_writes=False)
+    image, depth, _ = db.load_raw_frame(1)
+    assert image is not None and depth is None
+    resumed = Rtabmap.load(db, C.CameraModel.make(80.0, 80.0, 79.5, 59.5, 160, 120),
+                           Parameters(), device="cpu")
+    assert len(resumed.memory.signatures) == 3
+    db.close()
 
 
 def test_export_cloud_mesh_and_texture_match_the_jax_tool(tmp_path):

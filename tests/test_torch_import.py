@@ -27,8 +27,14 @@ new = {"rtabmap_tpu_torch.ops.epipolar", "rtabmap_tpu_torch.core.laser_scan",
        "rtabmap_tpu_torch.maps.grids", "rtabmap_tpu_torch.tools.rgbd_scan",
        "rtabmap_tpu_torch.maps.tsdf", "rtabmap_tpu_torch.maps.mesh",
        "rtabmap_tpu_torch.maps.texture", "rtabmap_tpu_torch.memory.db_reader",
-       "rtabmap_tpu_torch.tools.cli", "rtabmap_tpu_torch.tools.export_poses"}
+       "rtabmap_tpu_torch.tools.cli", "rtabmap_tpu_torch.tools.export_poses",
+       "rtabmap_tpu_torch.ops.stereo", "rtabmap_tpu_torch.ops.flow",
+       "rtabmap_tpu_torch.odometry.imu_filter", "rtabmap_tpu_torch.datasets.png",
+       "rtabmap_tpu_torch.datasets.layouts", "rtabmap_tpu_torch.tools.stereo_datasets"}
 assert new <= set(names), sorted(new - set(names))
+# the readers decode PNG and read sensor.yaml themselves (tools/bow_mapping.py
+# imports PIL only when it reads the JPEG samples)
+assert not [m for m in sys.modules if m.split(".")[0] in ("PIL", "yaml")], "PIL or yaml"
 """
 
 
@@ -139,12 +145,13 @@ def test_unported_paths_raise_not_implemented():
     for what in ({"landmarks": [object()]}, {"descf": np.zeros((8, 256), np.float32)}):
         with pytest.raises(NotImplementedError):
             slam.process(None, np.eye(3, 4), **what)
-    # the store tools are ported; every other tool of the twin's CLI names
-    # the slice that brings it
+    # the store and dataset tools are ported; every other tool of the twin's
+    # CLI names the slice that brings it
     from rtabmap_tpu_torch.tools import cli
 
     ported = {"info", "reprocess", "export", "export_cloud", "recovery",
-              "detect_more_loop_closures", "global_ba", "reduce_graph"}
+              "detect_more_loop_closures", "global_ba", "reduce_graph", "rgbd_dataset",
+              "kitti_dataset", "euroc_dataset", "cid_sims_dataset", "stereo_eval"}
     assert ported < set(cli.TOOLS) and len(cli.TOOLS) == 30
     for name in sorted(set(cli.TOOLS) - ported):
         with pytest.raises(NotImplementedError, match="slice"):

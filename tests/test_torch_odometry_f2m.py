@@ -28,6 +28,7 @@ from rtabmap_tpu.odometry import f2m as JF
 from rtabmap_tpu.ops import ransac as JR
 from rtabmap_tpu_torch.core.frame import FrameFeatures
 from rtabmap_tpu_torch.geometry import camera as C
+from rtabmap_tpu_torch.geometry import transform as T
 from rtabmap_tpu_torch.odometry import f2m as F
 from rtabmap_tpu_torch.ops import matching as M
 from torch_port_threads import one_torch_thread  # noqa: F401
@@ -104,10 +105,17 @@ def _same_state(p, j, atol=1e-4, skip_pts=()):
     assert p.initialized == bool(j.initialized) and p.age == float(j.age)
 
 
-def test_odom_step_keyframes_and_local_ba(frames):
-    jstep = jax.jit(lambda st, fr, key: JF.odom_step(st, fr, JCAM, key, reproj_px=REPROJ,
-                                                     ransac_iters=ITERS, keyframe_thr=KF_THR))
-    jba = jax.jit(lambda st: JF.local_ba_step(st, JCAM))
+@pytest.fixture(scope="module")
+def jax_fns():
+    """The JAX twin's jitted tick and local BA at this module's settings
+    (compiled once for the module's tests)."""
+    return (jax.jit(lambda st, fr, key: JF.odom_step(st, fr, JCAM, key, reproj_px=REPROJ,
+                                                     ransac_iters=ITERS, keyframe_thr=KF_THR)),
+            jax.jit(lambda st: JF.local_ba_step(st, JCAM)))
+
+
+def test_odom_step_keyframes_and_local_ba(frames, jax_fns):
+    jstep, jba = jax_fns
     js = JF.init_state(MAP, ba_frames=BA_FRAMES, obs_capacity=K)
     ps = F.init_state(MAP, ba_frames=BA_FRAMES, obs_capacity=K, device="cpu")
     n_kf = n_ba = 0
@@ -182,7 +190,53 @@ def test_odometry_wrapper_runs_and_loses_on_garbage(frames):
                               .astype(np.int8)))
     pose, cov, info = odom.process(junk)
     assert pose is None and float(cov[0, 0]) >= 9999.0 and odom.lost
-    with pytest.raises(NotImplementedError):
-        odom.process(_port_frame(frames[4]), imu_quat=np.array([1.0, 0, 0, 0]))
+    # with an IMU orientation the tracked pose takes its roll and pitch
+    q = np.array([0.05, -0.03, 0.4, 0.9], np.float32)
+    q /= np.linalg.norm(q)
+    pose, cov, info = odom.process(_port_frame(frames[4]), imu_quat=q)
+    rpy = T.to_xyzrpy(pose).numpy()
+    rpy_q = T.to_xyzrpy(T.from_quaternion(torch.from_numpy(q))).numpy()
+    np.testing.assert_allclose(rpy[3:5], rpy_q[3:5], atol=1e-5)
+    np.testing.assert_array_equal(odom.pose.numpy(), pose.numpy())
     with pytest.raises(NotImplementedError):
         F.odom_step(odom.state, _port_frame(frames[4]), CAM, search_window=40.0)
+
+
+def test_odometry_with_imu_quat_matches_the_twin(frames, jax_fns):
+    """OdometryF2M.process(frame, imu_quat) through both wrappers, the JAX
+    twin's draws injected: each tracked pose (after the local BA) takes the
+    IMU's roll and pitch. The IMU orientation is the true rotation since
+    the first frame, tilted by a few mrad."""
+    from rtabmap_tpu.odometry import imu_filter as JIMU  # noqa: F401 (compiled below)
+    from rtabmap_tpu.utils.params import Parameters as JParameters
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    settings = {"Odom/KeyFrameThr": KF_THR, "OdomF2M/MaxSize": MAP, "Vis/MaxFeatures": K,
+                "OdomF2M/BundleAdjustmentMaxFrames": BA_FRAMES, "Vis/PnPReprojError": REPROJ}
+    jo = JF.OdometryF2M(JCAM, JParameters(settings))
+    jo._step, jo._ba = jax_fns                  # the same computation, compiled once
+    po = F.OdometryF2M(CAM, Parameters(settings), device="cpu")
+    poses = np.asarray(JS.loop_trajectory(96))[:N_FRAMES]
+    rng = np.random.default_rng(9)
+    for i, f in enumerate(frames):
+        rel = T.np_relative(poses[0], poses[i]).astype(np.float32)
+        tilt = T.from_xyzrpy(torch.tensor([0, 0, 0, *rng.normal(0, 0.003, 2), 0.0],
+                                          dtype=torch.float32))
+        q = T.to_quaternion(T.compose(torch.from_numpy(rel), tilt)).numpy()
+        _, sub = jax.random.split(jo._key)      # the key the twin's process draws with
+        pf = _port_frame(f)
+        idx = None
+        if po.state.initialized:
+            idx = _indices(sub, M.match_nndr(pf.desc, pf.valid, po.state.map_desc,
+                                             po.state.map_valid).valid)
+        jpose, _, jinfo = jo.process(JF.FrameFeatures(*(jnp.asarray(x) for x in f)),
+                                     imu_quat=q)
+        ppose, _, pinfo = po.process(pf, imu_quat=q, indices=idx)
+        assert pinfo == {k: type(pinfo[k])(v) for k, v in jinfo.items()}
+        assert (ppose is None) == (jpose is None) and ppose is not None
+        np.testing.assert_allclose(ppose.numpy(), np.asarray(jpose), atol=1e-4)
+        rp = T.to_xyzrpy(ppose).numpy()[3:5]
+        np.testing.assert_allclose(rp, T.to_xyzrpy(T.from_quaternion(torch.from_numpy(q)))
+                                   .numpy()[3:5], atol=1e-5)
+        # later ticks start from the twin's map (as in the tick test above)
+        po.state = po.state._replace(map_pts=torch.from_numpy(np.array(jo.state.map_pts)))
