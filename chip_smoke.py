@@ -140,6 +140,24 @@ Phases — any failure ends the run with a non-zero exit code:
    on the card held to the same tool on the CPU. Each run prints the
    median and p90 of ``extract_ms`` (with the LK disparities), ``imu_ms``,
    ``odom_ms`` and ``process_ms``; K1 must launch once a quantize call.
+11. slice ``learned``: the learned front end (``Kp/DetectorStrategy`` 11,
+   SuperPoint, and ``Vis/CorNNType`` 6, the bundled attentional matcher;
+   ``tools/rgbd_laps.py --learned``). Card against CPU on the same inputs:
+   SuperPoint on a 640x480 frame in float32 and bfloat16, both SuperGlue
+   matchers (the distilled one and the official architecture on seeded
+   random weights) on two frames' 512 keypoints, and the learned stereo
+   extraction on the EuRoC layout's first pair (752x480); the networks'
+   times (SuperPoint at 640x480 and 752x480, the matcher at 512 x 512 and
+   its Sinkhorn, the official forward). Then three runs held to the JAX
+   package's CPU runs (``scripts/jax_rgbd_laps.py --learned``, seeds
+   0-3): ``full-revisit`` (two laps at 640x480, the second repeating the
+   first) with ground-truth poses straight into ``Rtabmap.process``: the
+   closures, their errors and the ATE; ``full`` the same way: each lap-2
+   frame's highest hypothesis and its value against the seed-0 JAX run;
+   ``parity`` through ``run_dataset`` (F2M on SuperPoint features): loops
+   and lost frames. Each run keeps Vis/CorNNType 6 and calls the matcher;
+   K1 launches once a quantize call and is timed at the closure run's end
+   state.
 
 Each slice zeroes the launch counts of its kernels right before each run
 and reads them right after; they must equal the calls the run made (K1:
@@ -176,7 +194,11 @@ from rtabmap_tpu_torch.geometry import transform as T
 from rtabmap_tpu_torch.maps import mesh as MESH
 from rtabmap_tpu_torch.maps import texture as TEX
 from rtabmap_tpu_torch.maps import tsdf as TSDF
+from rtabmap_tpu_torch.core.frame import FeatureExtractor
 from rtabmap_tpu_torch.memory.db import Database
+from rtabmap_tpu_torch.models import superglue as SGM
+from rtabmap_tpu_torch.models import superglue_official as SGO
+from rtabmap_tpu_torch.models import superpoint as SPM
 from rtabmap_tpu_torch.ops.cloud import estimate_normals, voxel_filter
 from rtabmap_tpu_torch.ops.cuda import build
 from rtabmap_tpu_torch.ops.cuda import compact_cases as CC
@@ -185,6 +207,7 @@ from rtabmap_tpu_torch.ops.cuda import vocab_knn as K1
 from rtabmap_tpu_torch.optim import ba as BA
 from rtabmap_tpu_torch.optim import pose_graph as PG
 from rtabmap_tpu_torch.tools import cli as CLI
+from rtabmap_tpu_torch.tools import dataset_runner as DR
 from rtabmap_tpu_torch.tools import bow_laps
 from rtabmap_tpu_torch.tools import lidar_mapping as LM
 from rtabmap_tpu_torch.tools import rgbd_laps
@@ -1366,6 +1389,349 @@ def run_stereo_slice() -> int:
     return total
 
 
+# ------------------------------------------------------------------ learned
+
+# The learned front end (Kp/DetectorStrategy 11, Vis/CorNNType 6) against
+# the JAX package's CPU runs of the same sequences
+# (PYTHONPATH=. python scripts/jax_rgbd_laps.py --learned [--gt-odometry]
+# --sequence S --seed N, seeds 0-3; PERF.md section 6):
+# - full-revisit with ground-truth odometry (the exact second lap): loops
+#   at least 90% of the JAX lowest, the closure links' median translation
+#   error at most the JAX highest median + 5 mm, SLAM ATE at most
+#   RGBD_ATE_BOUND;
+# - full with ground-truth odometry (appearance parity with the seed-0 JAX
+#   run): each lap-2 frame's highest hypothesis the JAX run's lap-1 node or
+#   its neighbour (ids 1 apart) on at least 90% of the frames, its value
+#   within 0.02 on every frame, the loop count equal. Not the same id on
+#   90%: SuperPoint's bfloat16 sums round differently on each device, and
+#   a lap-2 frame between two lap-1 views tips to either (the same id on
+#   85% of the frames with the port on the CPU, PERF.md section 6), the
+#   value moving at most 0.012;
+# - parity through run_dataset (F2M on SuperPoint features, as users launch
+#   it): loops at least 90% of the JAX lowest, lost frames at most the JAX
+#   highest + 2; the ATE printed beside the JAX runs'.
+# (seeds 0-3: full-revisit 60 loops each, closure median errors
+# 5.21e-7-5.43e-7 m; full 0 loops each; parity 6, 9, 7, 6 loops, 42, 39,
+# 41, 42 lost, SLAM ATE 0.0901, 0.1118, 0.0976, 0.0956 m over its 10
+# optimized poses)
+JAX_LEARNED = {"full-revisit": {"loops_min": 60, "closure_err_median_max": 5.431839784590307e-07},
+               "full": {"loops": 0},
+               "parity": {"loops_min": 6, "lost_max": 42,
+                          "ate_slam": [0.0901, 0.1118, 0.0976, 0.0956]}}
+# scripts/jax_rgbd_laps.py --learned --gt-odometry --sequence full, seed 0:
+# lap 2's highest hypothesis per frame (the seed moves only the RANSAC, so
+# seeds 1-3 give the same ids and values)
+JAX_LEARNED_FULL_LAP2_IDS = (
+    1, 2, 3, 4, 5, 5, 7, 8, 9, 10, 10, 12, 13, 14, 15, 16, 17, 18, 18, 20,
+    21, 22, 22, 23, 25, 26, 27, 28, 29, 30, 31, 31, 33, 34, 35, 36, 37, 38, 39, 40,
+    40, 41, 43, 42, 45, 46, 47, 48, 49, 50, 51, 52, 53, 53, 55, 55, 57, 58, 58, 61,
+)
+JAX_LEARNED_FULL_LAP2_VALUES = (
+    0.079991, 0.068805, 0.063395, 0.065255, 0.047859, 0.054451, 0.062417, 0.070013,
+    0.08208, 0.071654, 0.072492, 0.070094, 0.080744, 0.071264, 0.077199, 0.078073,
+    0.086606, 0.077906, 0.062892, 0.068362, 0.071377, 0.073669, 0.084742, 0.075602,
+    0.065907, 0.067872, 0.073401, 0.075202, 0.080828, 0.088806, 0.082192, 0.074002,
+    0.071685, 0.068728, 0.079555, 0.080401, 0.087002, 0.087707, 0.092547, 0.098255,
+    0.089358, 0.087781, 0.084365, 0.078335, 0.08127, 0.085415, 0.07762, 0.076614,
+    0.072626, 0.075278, 0.09043, 0.096505, 0.097903, 0.100882, 0.093623, 0.085271,
+    0.080504, 0.083479, 0.087631, 0.100965,
+)
+
+LEARNED_CLOSURE_MARGIN = 0.005
+LEARNED_HYP_SHARE, LEARNED_HYP_TOL, LEARNED_LOST_MARGIN = 0.9, 0.02, 2
+LAP = 60
+# Card against CPU on the same frame: SuperPoint's logits within 1e-4 of
+# their largest magnitude in float32 (cuDNN and the CPU sum the products in
+# other orders; TF32 off) and within 1e-2 in bfloat16 (a sum that crosses a
+# bfloat16 rounding boundary moves one unit, 2^-8 relative, and spreads
+# through the later layers), the valid keypoint sets overlapping (shared /
+# union) at least 0.99 and 0.95; the matchers' confidences within 1e-4,
+# idx and valid equal except where a confidence lies within 1e-4 of the
+# threshold (the official forward's log-assignment within 1e-4 too); the
+# learned stereo extraction's LK disparities at the card's
+# keypoints within LK_TOL, at most LK_FLIPS flags flipping.
+SP_TOL = {"float32": (1e-4, 0.99), "bfloat16": (1e-2, 0.95)}
+SG_TOL = 1e-4
+
+
+def _overlap(kps_a, kps_b) -> float:
+    a = {tuple(u) for u, v in zip(kps_a.uv.cpu().numpy(), kps_a.valid.cpu().numpy()) if v}
+    b = {tuple(u) for u, v in zip(kps_b.uv.cpu().numpy(), kps_b.valid.cpu().numpy()) if v}
+    return len(a & b) / max(len(a | b), 1)
+
+
+def learned_frame(k: int):
+    """Frame ``k`` of the full-width sequence rendered on the card."""
+    spec = rgbd_laps.sequence_spec("full")
+    W, H = spec["size"]
+    cam = CAMERA.CameraModel.make(spec["f"], spec["f"], spec["c"][0], spec["c"][1], W, H)
+    g, d = SYN.render(spec["poses"][k], cam, SYN.World(rgbd_laps.FULL_WORLD,
+                                                       SYN.DEFAULT_WORLD.seed), device="cuda")
+    return cam, g, d
+
+
+def check_superpoint() -> list:
+    """SuperPoint on one 640x480 frame, card against CPU, in both dtypes;
+    returns the card's bfloat16 extractions of frames 0 and 1 (keypoints,
+    descriptors) for the matchers."""
+    _cam, g, _d = learned_frame(0)
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        card = SPM.SuperPoint.distilled(device="cuda", dtype=dt)
+        cpu = SPM.SuperPoint.distilled(device="cpu", dtype=dt)
+        (lc, dc), (lh, dh) = card.forward(g), cpu.forward(g.cpu())
+        err = float((lc.cpu() - lh).abs().max() / lh.abs().max())
+        derr = float((dc.cpu() - dh).abs().max() / dh.abs().max())
+        kc, kh = card.extract(g, 512, conf_threshold=0.01)[0], cpu.extract(
+            g.cpu(), 512, conf_threshold=0.01)[0]
+        ov = _overlap(kc, kh)
+        tol, min_ov = SP_TOL[name]
+        res = {"slice": "learned", "check": "superpoint", "dtype": name,
+               "logits_rel_err": err, "desc_rel_err": derr, "keypoints_card": int(kc.valid.sum()),
+               "keypoints_cpu": int(kh.valid.sum()), "keypoint_overlap": ov}
+        print(json.dumps(res), flush=True)
+        if not (err <= tol and derr <= tol and ov >= min_ov):
+            fail(f"SuperPoint {name} card vs CPU: {res}")
+    sp = SPM.SuperPoint.distilled(device="cuda")
+    return [sp.extract(learned_frame(k)[1], 512, conf_threshold=0.01) for k in (0, 1)]
+
+
+def _matches_agree(label, card, cpu, threshold):
+    """(idx, valid, conf) of both devices: conf within SG_TOL, idx and
+    valid equal except where conf lies within SG_TOL of the threshold."""
+    (ic, vc, cc), (ih, vh, ch) = [tuple(x.cpu() for x in m) for m in (card, cpu)]
+    err = float((cc - ch).abs().max())
+    near = (ch - threshold).abs() <= SG_TOL
+    bad = int((((vc != vh) | ((ic != ih) & vh)) & ~near).sum())
+    res = {"slice": "learned", "check": label, "matches_card": int(vc.sum()),
+           "matches_cpu": int(vh.sum()), "conf_max_abs_err": err, "disagreeing_rows": bad}
+    print(json.dumps(res), flush=True)
+    if err > SG_TOL or bad:
+        fail(f"{label} card vs CPU: {res}")
+
+
+def official_params(seed: int = 0) -> dict:
+    """Seeded random parameters in the official SuperGlue layout (18 layers,
+    256 wide; PyTorch's default Linear scale, BatchNorm at unit variance)."""
+    rng = np.random.default_rng(seed)
+
+    def lin(o, i):
+        b = 1.0 / np.sqrt(i)
+        return {"w": rng.uniform(-b, b, (o, i)).astype(np.float32),
+                "b": rng.uniform(-b, b, (o,)).astype(np.float32)}
+
+    def bn(c):
+        return {"gamma": np.ones(c, np.float32), "beta": np.zeros(c, np.float32),
+                "mean": np.zeros(c, np.float32), "var": np.ones(c, np.float32)}
+
+    dims = (3, 32, 64, 128, 256)
+    blocks = [{"linear": lin(dims[i + 1], dims[i]), "bn": bn(dims[i + 1])} for i in range(4)]
+    layers = [{"q": lin(256, 256), "k": lin(256, 256), "v": lin(256, 256),
+               "out": lin(256, 256), "mlp0": {"linear": lin(512, 512), "bn": bn(512)},
+               "mlp1": lin(256, 512)} for _ in SGO.LAYER_TYPES]
+    return {"kenc": {"blocks": blocks, "final": lin(256, 256)}, "gnn": {"layers": layers},
+            "final": lin(256, 256), "bin_score": 1.0}
+
+
+def check_matchers(ex) -> dict:
+    """Both matchers on frames 0 and 1, card against CPU, and their times at
+    512 x 512."""
+    (ka, da, fa), (kb, db, fb) = ex
+    sc = torch.full((512,), 0.5, device="cuda")
+    args = (fa, ka.uv, sc, ka.valid, fb, kb.uv, sc, kb.valid)
+    wh = (640.0, 480.0)
+    card, cpu = SGM.SuperGlueMatcher.distilled("cuda"), SGM.SuperGlueMatcher.distilled("cpu")
+    _matches_agree("superglue distilled", card.match(*args, image_wh=wh),
+                   cpu.match(*(a.cpu() for a in args), image_wh=wh), 0.2)
+    params = official_params()
+    pc, ph = SGO.to_device(params, "cuda"), SGO.to_device(params, "cpu")
+    oargs = (ka.uv, sc, fa, kb.uv, sc, fb, 640.0, 480.0)
+    zc = SGO.superglue_apply(pc, *oargs, iters=50)
+    zh = SGO.superglue_apply(ph, *(a.cpu() if torch.is_tensor(a) else a for a in oargs),
+                             iters=50)
+    z_err = float((zc.cpu() - zh).abs().max())
+    print(json.dumps({"slice": "learned", "check": "superglue official log-assignment",
+                      "z_max_abs_err": z_err}), flush=True)
+    if not z_err <= SG_TOL:
+        fail(f"superglue official card vs CPU: log-assignment {z_err:.2e} apart")
+    _matches_agree("superglue official", SGO.match_from_scores(zc),
+                   SGO.match_from_scores(zh), 0.2)
+    # times at 512 x 512: the matcher, its Sinkhorn alone, the official
+    # forward at the registration's 50 iterations
+    with torch.no_grad():
+        na = (ka.uv / torch.tensor(wh, device="cuda")) * 2 - 1
+        nb = (kb.uv / torch.tensor(wh, device="cuda")) * 2 - 1
+        scores, dustbin = card.net(fa, na, sc, ka.valid, fb, nb, sc, kb.valid)
+    times = {"slice": "learned", "check": "matcher_times", "K": 512,
+             "superglue_match_ms": time_ms(lambda: card.match(*args, image_wh=wh)),
+             "sinkhorn_ms": time_ms(lambda: SGM.log_sinkhorn(scores, dustbin, ka.valid,
+                                                             kb.valid)),
+             "official_apply_ms": time_ms(lambda: SGO.superglue_apply(pc, *oargs, iters=50))}
+    times["sinkhorn_share"] = times["sinkhorn_ms"] / times["superglue_match_ms"]
+    for size in ((640, 480), (752, 480)):
+        W, H = size
+        net = SPM.SuperPoint.distilled(device="cuda")
+        img = torch.rand((H, W), device="cuda")
+        times[f"superpoint_forward_ms_{W}x{H}"] = time_ms(lambda: net.forward(img))
+    print(json.dumps(times), flush=True)
+    return times
+
+
+def check_stereo_learned(root: str) -> dict:
+    """extract_stereo_learned on the EuRoC layout's first pair (752x480),
+    card against CPU: the keypoint sets, and the LK disparities at the
+    card's keypoints."""
+    from rtabmap_tpu_torch.datasets.readers import EurocDataset
+    from rtabmap_tpu_torch.ops import stereo as ST
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    args = SD.write_layout("full", root, torch.device("cuda"), frames=1)
+    ds = EurocDataset(args[-1])
+    fr = next(iter(ds))
+    p = Parameters(rgbd_laps.LEARNED)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fe = FeatureExtractor(ds.camera, p, max_kp=512, device=dev)
+        out[dev] = DR.extract_stereo_learned(fe, fr.gray, fr.right, ds.stereo)[0]
+    ov = _overlap(out["cuda"], out["cpu"])
+    kc = out["cuda"]
+    disp = {}
+    for dev in ("cuda", "cpu"):
+        gl, gr = (torch.from_numpy(np.array(x, np.float32)).to(dev) for x in (fr.gray, fr.right))
+        d, ok = ST.lk_stereo_disparity(gl, gr, kc.uv.to(dev), kc.valid.to(dev))
+        disp[dev] = (d.cpu().numpy(), ok.cpu().numpy())
+    flips = int((disp["cuda"][1] != disp["cpu"][1]).sum())
+    both = disp["cuda"][1] & disp["cpu"][1]
+    err = float(np.abs(disp["cuda"][0][both] - disp["cpu"][0][both]).max()) if both.any() else 0.0
+    res = {"slice": "learned", "check": "stereo_learned",
+           "size": [ds.camera.width, ds.camera.height], "keypoints": int(kc.valid.sum()),
+           "stereo_points": int(kc.valid3d.sum()), "keypoint_overlap": ov,
+           "lk_flips": flips, "lk_max_err_px": err}
+    print(json.dumps(res), flush=True)
+    if ov < SP_TOL["bfloat16"][1] or flips > LK_FLIPS or err > LK_TOL or not both.any():
+        fail(f"learned stereo extraction card vs CPU: {res}")
+    return res
+
+
+def learned_run(name: str, gt: bool) -> tuple:
+    """One learned run on the card; checks the state on the card, K1 once
+    a quantize call, the matcher still selected and called, finite
+    statistics. Returns (summary, K1 launches, engine)."""
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    K1.knn2.launches = 0
+    out = rgbd_laps.run_sequence(name, torch.device("cuda"),
+                                 params=Parameters(rgbd_laps.LEARNED), gt_odometry=gt)
+    launches = K1.knn2.launches
+    run = out.pop("run")
+    slam = run["slam"]
+    mem = slam.memory
+    label = f"learned {name}{' gt' if gt else ''}"
+    for what, t in (("vocabulary slab", mem.vocab.slab), ("node words", mem.node_words),
+                    ("posterior", slam.bayes.posterior),
+                    ("matcher", next(mem.py_matcher.net.parameters()))):
+        if t.device.type != "cuda":
+            fail(f"{label}: {what} lies on {t.device}")
+    if launches != out["quantize_calls"] or launches == 0:
+        fail(f"{label}: vocab_knn2 launched {launches} times for "
+             f"{out['quantize_calls']} quantize calls")
+    if mem.cor_nn_type != 6 or mem.matcher_calls == 0:
+        fail(f"{label}: Vis/CorNNType {mem.cor_nn_type}, {mem.matcher_calls} matcher calls")
+    for st in slam.stats_history:
+        for k, v in st.data.items():
+            if not np.isfinite(v):
+                fail(f"{label}: statistic {k} = {v}")
+    if not np.isfinite(out["ate_slam"]):
+        fail(f"{label}: non-finite ATE")
+    # where a frame's process() time goes: each stage's mean over the frames
+    stages = {}
+    for st in slam.stats_history:
+        for k, v in st.data.items():
+            if k.startswith("Timing/") and k != "Timing/Total/ms":
+                stages[k] = stages.get(k, 0.0) + v / len(slam.stats_history)
+    top = dict(sorted(stages.items(), key=lambda kv: -kv[1])[:5])
+    res = {"slice": "learned", "sequence": name, "gt_odometry": gt,
+           "vocab_knn2_launches": launches, "stage_mean_ms": top,
+           **{k: v for k, v in out.items() if k not in ("hyp_ids", "hyp_values")}}
+    print(json.dumps(res), flush=True)
+    return out, launches, slam
+
+
+def k1_at_end_state(slam) -> dict:
+    """K1 at the learned run's end state: the last frame's 512 descriptors
+    against the dictionary's valid prefix, as the quantize call passes it."""
+    voc = slam.memory.vocab
+    n = max(voc.n_words, 1)
+    sl, va = voc.slab[:n], voc.word_valid[:n]
+    last = slam.memory.signatures[max(slam.memory.signatures)]
+    q = torch.from_numpy(np.ascontiguousarray(last.desc)).to("cuda")
+    d, i = K1.knn2(q, sl, va)
+    dr, ir = K1.knn2_reference(q, sl, va)
+    if not (torch.equal(d, dr) and torch.equal(i, ir)):
+        fail("vocab_knn2 disagrees with its plain version at the learned end state")
+    w8 = -(-n // 8) * 8
+    bound, bound_by = knn2_bound_ms(q.shape[0], n, int(va.sum()))
+    row = {"kernel": "vocab_knn2", "case": "learned-end-state", "Q": q.shape[0], "W": n,
+           "n_valid": int(va.sum()), "equal": True,
+           "kernel_ms": time_ms(lambda: K1.knn2(q, sl, va)),
+           "graph_ms": graph_ms(lambda: K1.knn2(q, sl, va)),
+           "plain_ms": time_ms(lambda: K1.knn2_reference(q, sl, va), reps=10),
+           "library_ms": time_ms(lambda: knn2_library(q, voc.slab[:w8], voc.word_valid[:w8])),
+           "bound_us": bound * 1e3, "bound_by": bound_by}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def run_learned_slice() -> int:
+    """The learned front end: SuperPoint, both matchers and the learned
+    stereo extraction card against CPU, their times, then the closure run,
+    the appearance-parity run and the parity run through run_dataset, held
+    to the JAX CPU runs; K1 at the closure run's end state. Returns K1's
+    launches in the phase."""
+    ex = check_superpoint()
+    check_matchers(ex)
+    with tempfile.TemporaryDirectory() as root:
+        check_stereo_learned(root)
+    total = 0
+    rev, n, slam = learned_run("full-revisit", gt=True)
+    total += n
+    ref = JAX_LEARNED["full-revisit"]
+    if rev["loops"] < int(0.9 * ref["loops_min"]):
+        fail(f"learned full-revisit: {rev['loops']} loops, JAX CPU lowest {ref['loops_min']}")
+    if not rev["closure_err_median_m"] <= ref["closure_err_median_max"] + LEARNED_CLOSURE_MARGIN:
+        fail(f"learned full-revisit: closures' median error {rev['closure_err_median_m']} m, "
+             f"JAX CPU highest {ref['closure_err_median_max']} m")
+    if not rev["ate_slam"] <= RGBD_ATE_BOUND:
+        fail(f"learned full-revisit: SLAM ATE {rev['ate_slam']} m")
+    k1_at_end_state(slam)
+    del slam
+    full, n, _ = learned_run("full", gt=True)
+    total += n
+    ref = JAX_LEARNED["full"]
+    ids, vals = np.asarray(full["hyp_ids"][LAP:]), np.asarray(full["hyp_values"][LAP:])
+    jids = np.asarray(JAX_LEARNED_FULL_LAP2_IDS)
+    dv = np.abs(vals - np.asarray(JAX_LEARNED_FULL_LAP2_VALUES))
+    res = {"slice": "learned", "check": "appearance_parity",
+           "lap2_same_hypothesis": float((ids == jids).mean()),
+           "lap2_same_or_neighbour": float((np.abs(ids - jids) <= 1).mean()),
+           "value_max_abs_diff": float(dv.max()), "loops": full["loops"],
+           "jax_loops": ref["loops"], "value_median": float(np.median(vals)),
+           "value_max": float(vals.max())}
+    print(json.dumps(res), flush=True)
+    if res["lap2_same_or_neighbour"] < LEARNED_HYP_SHARE or \
+            res["value_max_abs_diff"] > LEARNED_HYP_TOL or full["loops"] != ref["loops"]:
+        fail(f"learned full: appearance parity {res}")
+    par, n, _ = learned_run("parity", gt=False)
+    total += n
+    ref = JAX_LEARNED["parity"]
+    print(json.dumps({"slice": "learned", "check": "parity", "ate_slam": par["ate_slam"],
+                      "jax_ate_slam": ref["ate_slam"]}), flush=True)
+    if par["loops"] < int(0.9 * ref["loops_min"]) or \
+            par["lost"] > ref["lost_max"] + LEARNED_LOST_MARGIN:
+        fail(f"learned parity: {par['loops']} loops, {par['lost']} lost (JAX CPU lowest "
+             f"{ref['loops_min']} loops, highest {ref['lost_max']} lost)")
+    return total
+
+
 # ---------------------------------------------------------------- map tools
 
 # Same inputs on the card and the CPU (the stated tolerances): tsdf and
@@ -1836,6 +2202,7 @@ def main():
         k1["launches"] += phase("map_tools", lambda: run_map_tools(stores, sessions))
     scan_k1, scan_k2, scan_k2c = phase("rgbd_scan", run_scan_slice)
     k1["launches"] += phase("stereo", run_stereo_slice)
+    k1["launches"] += phase("learned", run_learned_slice)
     k1["launches"] += scan_k1
     k2["launches"] += scan_k2
     k2c["launches"] += scan_k2c

@@ -1,10 +1,11 @@
 """Frame-level features and the ``Kp/DetectorStrategy`` dispatch.
 
-Port of ``rtabmap_tpu/core/frame.py`` for the classical GFTT/BRIEF path:
-``FrameFeatures`` (fixed-K struct of tensors, the unit of quantization),
-``SensorData``, ``EnvSensor``, ``extract_features`` and
-``FeatureExtractor``. Strategies whose detector or descriptor is not
-ported yet, and the learned strategies, raise ``NotImplementedError``.
+Port of ``rtabmap_tpu/core/frame.py``: ``FrameFeatures`` (fixed-K struct
+of tensors, the unit of quantization), ``SensorData``, ``EnvSensor``,
+``extract_features`` and ``FeatureExtractor``: the classical GFTT/BRIEF
+path and the learned SuperPoint strategies (11, 15, 16). Classical
+strategies whose detector or descriptor is not ported yet raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -96,9 +97,16 @@ PORTED = ("gftt", "brief")
 
 
 class FeatureExtractor:
-    """``Kp/DetectorStrategy`` dispatch over the classical pipeline.
-    ``extract(gray, depth) -> (FrameFeatures, None)``; inputs are moved to
-    ``device`` (None = the CUDA card)."""
+    """``Kp/DetectorStrategy`` dispatch (the reference's ``Feature2D::create``).
+    Strategies 11, 15 and 16 run SuperPoint (``models/superpoint.py``: the
+    bundled weights, or ``SuperPoint/ModelPath``, an npz of either package),
+    with ``SuperPoint/Threshold`` (``SuperPointRpautrat/Threshold`` for 16)
+    and ``SuperPoint/NMS`` / ``NMSRadius``; the others run the classical
+    pipeline. ``extract(gray, depth) -> (FrameFeatures, descf)``: descf is
+    the (K, 256) float descriptor table of the learned strategies (for the
+    ``Vis/CorNNType`` 6 matcher, through ``Rtabmap.process(descf=...)``) and
+    None for the classical ones. Inputs are moved to ``device`` (None = the
+    CUDA card)."""
 
     def __init__(self, cam: C.CameraModel, params=None, max_kp: int = 512,
                  min_depth: float = 0.1, max_depth: float = 20.0,
@@ -111,10 +119,18 @@ class FeatureExtractor:
         self.max_kp = max_kp
         self.strategy = int(p["Kp/DetectorStrategy"])
         self.min_depth, self.max_depth = min_depth, max_depth
-        if self.strategy in LEARNED_STRATEGIES:
-            raise NotImplementedError(
-                f"Kp/DetectorStrategy={self.strategy} (learned SuperPoint) is "
-                "not ported yet; it comes with the learned-front-end slice")
+        if self.learned:
+            from rtabmap_tpu_torch.models.superpoint import SuperPoint
+
+            model_path = str(p["SuperPoint/ModelPath"] or "")
+            self._sp = (SuperPoint.load_params(model_path, device=self.device) if model_path
+                        else SuperPoint.distilled(device=self.device))
+            thr_key = ("SuperPointRpautrat/Threshold" if self.strategy == 16
+                       else "SuperPoint/Threshold")
+            self._sp_threshold = float(p[thr_key])
+            self._sp_nms = (2 * int(p["SuperPoint/NMSRadius"]) + 1
+                            if bool(p["SuperPoint/NMS"]) else 1)
+            return
         self.detector, self.descriptor = CLASSICAL_STRATEGIES.get(
             self.strategy, PORTED)
         if (self.detector, self.descriptor) != PORTED:
@@ -123,18 +139,34 @@ class FeatureExtractor:
                 f"{self.detector}/{self.descriptor} pipeline, which comes with "
                 "a later slice; only GFTT/BRIEF strategies are ported")
 
+    @property
+    def learned(self) -> bool:
+        return self.strategy in LEARNED_STRATEGIES
+
     def _image(self, img) -> torch.Tensor:
         if isinstance(img, torch.Tensor):
             return img.to(device=self.device, dtype=torch.float32)
         return torch.from_numpy(np.array(img, np.float32)).to(self.device)
 
+    def extract_superpoint(self, gray: torch.Tensor):
+        """SuperPoint on one image -> (Keypoints, desc, descf)."""
+        return self._sp.extract(gray, self.max_kp, nms_size=self._sp_nms,
+                                conf_threshold=self._sp_threshold)
+
     def extract(self, gray, depth=None):
         gray = self._image(gray)
         depth = torch.zeros_like(gray) if depth is None else self._image(depth)
-        fr = extract_features(gray, depth, self.cam, self.max_kp,
-                              self.min_depth, self.max_depth,
-                              detector=self.detector, descriptor=self.descriptor)
-        return fr, None
+        if not self.learned:
+            fr = extract_features(gray, depth, self.cam, self.max_kp,
+                                  self.min_depth, self.max_depth,
+                                  detector=self.detector, descriptor=self.descriptor)
+            return fr, None
+        kps, desc, descf = self.extract_superpoint(gray)
+        pts3d, ok3d = F.keypoints_3d_from_depth(kps, depth, self.cam, self.min_depth,
+                                                self.max_depth)
+        fr = FrameFeatures(uv=kps.uv, desc=desc, pts3d=pts3d, valid=kps.valid,
+                           valid3d=ok3d, angle=kps.angle, response=kps.response)
+        return fr, descf
 
     def __call__(self, gray, depth=None):
         return self.extract(gray, depth)

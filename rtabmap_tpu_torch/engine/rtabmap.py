@@ -321,11 +321,8 @@ class Rtabmap:
                 grid=None, env_sensors=None, global_desc=None, gt_pose=None,
                 velocity=None, gps=None, landmarks=None, raw=None, descf=None,
                 extra_stats: Optional[Dict[str, float]] = None) -> Statistics:
-        for what, value, slice_ in (
-                ("landmarks", landmarks, "a later slice"),
-                ("learned float descriptors", descf, "the learned-model slice")):
-            if value is not None:
-                raise _not_ported(f"process() with {what}", slice_)
+        if landmarks is not None:
+            raise _not_ported("process() with landmarks", "a later slice")
         st = Statistics()
         if extra_stats:
             for k, v in extra_stats.items():
@@ -385,6 +382,9 @@ class Rtabmap:
             if raw is not None and self.memory.cor_type == 1:
                 # optical-flow correspondences (Vis/CorType 1) need the pixels
                 sig.image = to_numpy(raw[0])
+            if descf is not None and self.memory.cor_nn_type == 6:
+                # the matcher (Vis/CorNNType 6) needs the float descriptors
+                sig.descf = to_numpy(descf).astype(np.float32)
             if raw is not None and self.bin_data_kept and self.memory.db is not None:
                 # raw sensor data kept with the node (Mem/BinDataKept), copied
                 # to the host here, compressed on the store's writer thread
@@ -811,11 +811,24 @@ class Rtabmap:
             old = self.memory.get(hyp_id)
             if old is None or old.uv is None or sig.uv is None:
                 return False
-            if self.memory.cor_nn_type == 6:
-                raise _not_ported("the learned matcher's epipolar correspondences "
-                                  "(Vis/CorNNType=6 with VhEp/Enabled)",
-                                  "the learned-model slice")
-            ia, ib = _shared_word_rows(old.word_ids, sig.word_ids)
+            mem = self.memory
+            if (mem.cor_nn_type == 6 and old.descf is not None and sig.descf is not None
+                    and mem._ensure_matcher() and mem.py_matcher is not None):
+                # the learned stack: the bundled matcher's correspondences in
+                # place of shared-word rows (binarized learned words are too
+                # coarse for unique pairs)
+                dev = self.device
+                sc = torch.full((old.uv.shape[0],), 0.5, dtype=torch.float32, device=dev)
+                idx, okm, _conf = mem.py_matcher.match(
+                    old.descf, old.uv, sc, np.any(old.desc != 0, axis=1),
+                    sig.descf, sig.uv, sc, np.any(sig.desc != 0, axis=1),
+                    image_wh=(float(self.cam.width), float(self.cam.height)),
+                    threshold=mem.pymatcher_threshold)
+                okm = okm.cpu().numpy()
+                ia = np.nonzero(okm)[0]
+                ib = idx.cpu().numpy()[ia]
+            else:
+                ia, ib = _shared_word_rows(old.word_ids, sig.word_ids)
             st.add("Loop/Epipolar pairs/", len(ia))
             if len(ia) < self.vh_ep_match_count_min:
                 return False

@@ -23,8 +23,12 @@ of joining WM, and rehearsal only accumulates weight.
 
 ``Vis/CorType`` 1 tracks A's keypoints into B's image by KLT where both
 signatures kept their image (the engine keeps it for that mode), else
-registers by descriptors, as the twin does. Later slices: the SuperGlue
-(``Vis/CorNNType`` 6) and GMS (``Vis/CorNNType`` 7) correspondence modes.
+registers by descriptors, as the twin does. ``Vis/CorNNType`` 6 takes the
+correspondences from the attentional matcher where both signatures kept
+their float descriptors (``descf``): the bundled ``SuperGlueMatcher`` or,
+with ``PyMatcher/Path`` (or ``set_superglue``), the official architecture;
+a missing or unreadable weights file raises (the twin falls back to NNDR).
+Later slice: the GMS (``Vis/CorNNType`` 7) correspondence mode.
 """
 from __future__ import annotations
 
@@ -97,6 +101,8 @@ class Signature:
     velocity: Optional[np.ndarray] = None
     gps: Optional[np.ndarray] = None
     image: Optional[np.ndarray] = None   # (H,W) gray, kept only for Vis/CorType 1
+    descf: Optional[np.ndarray] = None   # (K,256) float descriptors, kept only
+                                         # for Vis/CorNNType 6 (the matcher's input)
 
 
 class IdList(list):
@@ -278,6 +284,14 @@ class Memory:
         self.flow_win_size = int(p["Vis/CorFlowWinSize"])
         self.flow_iterations = int(p["Vis/CorFlowIterations"])
         self.flow_max_level = int(p["Vis/CorFlowMaxLevel"])
+        # Vis/CorNNType 6: the attentional matcher, resolved on first use
+        # (_ensure_matcher): official-architecture params (set_superglue or
+        # PyMatcher/Path) or the bundled SuperGlueMatcher
+        self.superglue_params = None
+        self.py_matcher = None
+        self.pymatcher_path = str(p["PyMatcher/Path"] or "")
+        self.pymatcher_threshold = float(p["PyMatcher/Threshold"])
+        self.matcher_calls = 0   # registrations through the matcher
         self.last_registration: Dict[str, float] = {}
         self.node_capacity = node_capacity
         self.K = words_per_frame
@@ -344,6 +358,13 @@ class Memory:
             self._nbr_table.add_edge(a.slot, b.slot)
         else:
             self._nbr_table.remove_edge(a.slot, b.slot)
+
+    def set_superglue(self, params) -> None:
+        """Attach official SuperGlue weights (``models.convert.convert_superglue``)
+        for Vis/CorNNType 6 matching."""
+        from rtabmap_tpu_torch.models import superglue_official as sgo
+
+        self.superglue_params = sgo.to_device(params, self.device)
 
     # ------------------------------------------------------------------ props
     @property
@@ -693,12 +714,6 @@ class Memory:
         return out
 
     # --------------------------------------------------- pairwise registration
-    def _check_correspondence_mode(self):
-        if self.cor_nn_type == 6:
-            raise NotImplementedError(
-                "SuperGlue matching (Vis/CorNNType=6) is not ported yet; it comes with "
-                "the learned-model slice")
-
     def _b_side(self, b: Signature):
         """The registration target's tensors: the in-flight frame's device
         tensors while its deferred create is pending, else the host arrays."""
@@ -719,13 +734,18 @@ class Memory:
         restricted to Vis/CorGuessWinSize pixels around the projection.
         With Vis/CorType 1 and both signatures' images kept, A's keypoints
         are tracked into B's image instead (``_compute_transform_flow``).
+        With Vis/CorNNType 6 and both signatures' descf kept, the matcher's
+        correspondences (``_compute_transform_superglue``).
         Returns (T_ab or None, covariance, inliers)."""
-        self._check_correspondence_mode()
         a, b = self.signatures[from_id], self.signatures[to_id]
         has_guess = guess is not None
         if self.cor_type == 1 and a.image is not None and b.image is not None:
             return self._compute_transform_flow(a, b, cam, guess, generator, iters,
                                                 reproj_px, min_inliers, indices)
+        if (self.cor_nn_type == 6 and a.descf is not None and b.descf is not None
+                and self._ensure_matcher()):
+            return self._compute_transform_superglue(a, b, cam, guess, generator, iters,
+                                                     reproj_px, min_inliers, indices)
         guess_t = (self._as_dev(guess, torch.float32) if has_guess
                    else T.identity(device=self.device))
         use_window = bool(guess_window) and has_guess and self.guess_win_size > 0
@@ -772,10 +792,11 @@ class Memory:
         pinned host memory, and returns handles for
         ``collect_transform_batch``. The target may be the frame whose
         deferred create is still in flight (its device tensors are used).
-        With Vis/CorType 1 each pair registers on its own, as the twin's
-        batch does (``compute_transform``), and the handles hold the results."""
-        self._check_correspondence_mode()
-        if self.cor_type == 1:
+        With Vis/CorType 1 or Vis/CorNNType 6 each pair registers on its
+        own, as the twin's batch does (``compute_transform``; ``indices``
+        then holds each pair's draws along its first axis), and the handles
+        hold the results."""
+        if self.cor_type == 1 or self.cor_nn_type == 6:
             return ("done", [self.compute_transform(
                 i, to_id, cam, generator, guess=g, min_inliers=min_inliers,
                 reproj_px=reproj_px, iters=iters, guess_window=guess_window,
@@ -819,6 +840,67 @@ class Memory:
         self._record_registration_host(int(last[49]), last[12:48].reshape(6, 6),
                                        int(last[50]), float(last[51]), float(last[52]))
         return out
+
+    def _ensure_matcher(self) -> bool:
+        """Resolve the Vis/CorNNType 6 matcher on first use: PyMatcher/Path
+        (an npz of the official architecture, the ``set_superglue`` role)
+        or the bundled SuperGlueMatcher. A missing or unreadable weights
+        file raises (the twin logs it and falls back to NNDR matching)."""
+        if self.superglue_params is None and self.py_matcher is None:
+            if self.pymatcher_path:
+                from rtabmap_tpu_torch.models import superglue_official as sgo
+
+                self.superglue_params = sgo.load_params(self.pymatcher_path, self.device)
+            else:
+                from rtabmap_tpu_torch.models.superglue import SuperGlueMatcher
+
+                self.py_matcher = SuperGlueMatcher.distilled(device=self.device)
+        return True
+
+    def _compute_transform_superglue(self, a: Signature, b: Signature, cam: C.CameraModel,
+                                     guess, generator, iters: int, reproj_px: float,
+                                     min_inliers: int, indices=None):
+        """The attentional matcher's correspondences (the reference's
+        PyMatcher, Vis/CorNNType 6), then PnP-RANSAC from A's 3D to B's
+        matched pixels. Keypoint scores are not kept per node: both
+        networks take a flat 0.5."""
+        self.matcher_calls += 1
+        uv_a = self._as_dev(a.uv, torch.float32)
+        b_desc, _b_ok3, uv_b, _b_pts = self._b_side(b)
+        df_a = self._as_dev(a.descf, torch.float32)
+        df_b = self._as_dev(b.descf, torch.float32)
+        sc_a = torch.full((uv_a.shape[0],), 0.5, dtype=torch.float32, device=self.device)
+        sc_b = torch.full((uv_b.shape[0],), 0.5, dtype=torch.float32, device=self.device)
+        if self.py_matcher is not None:
+            va = torch.any(self._as_dev(a.desc, torch.int8) != 0, dim=1)
+            vb = torch.any(b_desc != 0, dim=1)
+            idx_ab, match_valid, _conf = self.py_matcher.match(
+                df_a, uv_a, sc_a, va, df_b, uv_b, sc_b, vb,
+                image_wh=(float(cam.width), float(cam.height)),
+                threshold=self.pymatcher_threshold)
+        else:
+            from rtabmap_tpu_torch.models.superglue_official import (
+                match_from_scores, superglue_apply,
+            )
+
+            Z = superglue_apply(self.superglue_params, uv_a, sc_a, df_a, uv_b, sc_b, df_b,
+                                float(cam.width), float(cam.height), iters=50)
+            idx_ab, match_valid, _score = match_from_scores(Z)
+        w = match_valid & self._as_dev(a.valid3d, torch.bool)
+        res = R.ransac_pnp(self._as_dev(a.pts3d, torch.float32), uv_b[idx_ab.long()], w, cam,
+                           generator, iters=iters, reproj_px=reproj_px,
+                           min_inliers=min_inliers,
+                           guess=None if guess is None else self._as_dev(guess, torch.float32),
+                           indices=indices)
+        flat = torch.cat([res.transform.reshape(-1), res.covariance.reshape(-1),
+                          torch.stack([res.success.float(), res.num_inliers.float(),
+                                       match_valid.sum().float()])]).cpu().numpy()
+        transform, cov = flat[:12].reshape(3, 4), flat[12:48].reshape(6, 6)
+        success, n_inl, n_match = flat[48:]
+        self._record_registration_host(int(n_inl), cov, int(n_match))
+        if not success:
+            return None, np.eye(6) * 9999.0, int(n_inl)
+        return transform.copy(), cov.copy(), int(n_inl)
 
     def _compute_transform_flow(self, a: Signature, b: Signature, cam: C.CameraModel, guess,
                                 generator, iters: int, reproj_px: float, min_inliers: int,

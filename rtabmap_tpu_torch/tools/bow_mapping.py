@@ -56,9 +56,9 @@ def run(image_dir: str, params=None, max_kp: int = 400, max_images: int = 0,
     for i, f in enumerate(files):
         arr = torch.from_numpy(np.asarray(Image.open(f)).copy()).to(dev)
         gray = im.rgb_to_gray(arr) if arr.dim() == 3 else arr.float() / 255.0
-        fr, _ = fe.extract(gray, zero_depth)
+        fr, descf = fe.extract(gray, zero_depth)
         st = slam.process(fr, np.eye(3, 4, dtype=np.float32), np.eye(6) * 9e-5,
-                          stamp=float(i))
+                          stamp=float(i), descf=descf)
         hyp = st.get("Loop/Highest hypothesis value/", 0.0)
         if st.loop_closure_id:
             closures.append((st.ref_id, st.loop_closure_id, hyp))

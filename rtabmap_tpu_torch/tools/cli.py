@@ -4,8 +4,9 @@ or a recorded sequence.
 Port of the store and dataset tools of ``rtabmap_tpu/tools/cli.py`` (the
 reference's rtabmap-info, -reprocess, -export, -recovery,
 -detectMoreLoopClosures, -globalBundleAdjustment and -reduceGraph; the
-TUM, KITTI, EuRoC and CID-SIMS dataset tools and stereoEval), with the
-twin's argument syntax. Run as
+TUM, KITTI, EuRoC and CID-SIMS dataset tools and stereoEval; the Matcher
+tool and the learned models' weight converter), with the twin's argument
+syntax. Run as
 
     python -m rtabmap_tpu_torch.tools.cli <tool> [args...] [--device cpu]
 
@@ -570,6 +571,84 @@ def tool_stereo_eval(argv: List[str]):
             "uv": kps.uv.cpu().numpy()}
 
 
+def tool_matcher(argv: List[str]):
+    """Match two images and check their epipolar geometry (rtabmap-matcher):
+    ``matcher <imgA.png> <imgB.png> [--Vis/... v]``. With a learned
+    ``Kp/DetectorStrategy`` and ``Vis/CorNNType`` 6 the bundled
+    attentional matcher gives the correspondences, else mutual NNDR.
+    Prints and returns the features, matches and epipolar inliers."""
+    from rtabmap_tpu_torch.core.frame import FeatureExtractor
+    from rtabmap_tpu_torch.datasets.png import read_png
+    from rtabmap_tpu_torch.geometry import camera as C
+    from rtabmap_tpu_torch.ops import epipolar as EP
+    from rtabmap_tpu_torch.ops import image as im
+    from rtabmap_tpu_torch.ops import matching as M
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    dev, argv = _device(argv)
+    params, rest = Parameters.parse_arguments(argv)
+    max_kp = int(params["Vis/MaxFeatures"]) or 512
+
+    def load(p):
+        a = read_png(p)
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return im.rgb_to_gray(t) if a.ndim == 3 else t.float() / 255.0
+
+    ga, gb = load(rest[0]), load(rest[1])
+    H, W = ga.shape
+    cam = C.CameraModel.make(W, W, W / 2 - 0.5, H / 2 - 0.5, W, H)
+    fe = FeatureExtractor(cam, params, max_kp=max_kp, device=dev)
+    (fa, dfa), (fb, dfb) = fe.extract(ga), fe.extract(gb)
+    if int(params["Vis/CorNNType"]) == 6 and dfa is not None:
+        from rtabmap_tpu_torch.models.superglue import SuperGlueMatcher
+
+        sgm = SuperGlueMatcher.distilled(device=dev)
+        sc = torch.full((fa.uv.shape[0],), 0.5, dtype=torch.float32, device=dev)
+        idx, okm, _conf = sgm.match(dfa, fa.uv, sc, fa.valid, dfb, fb.uv, sc, fb.valid,
+                                    image_wh=(float(cam.width), float(cam.height)),
+                                    threshold=float(params["PyMatcher/Threshold"]))
+        m = M.Matches(idx=idx, dist=torch.zeros_like(sc), second=torch.zeros_like(sc),
+                      valid=okm)
+    else:
+        m = M.match_mutual_nndr(fa.desc, fa.valid, fb.desc, fb.valid,
+                                nndr=float(params["Vis/CorNNDR"]))
+    nm = int(m.valid.sum())
+    ok, _F, inl = EP.check_hypothesis(fa.uv, fb.uv[m.idx.long()], m.valid,
+                                      torch.Generator().manual_seed(0))
+    n_inl = int(inl.sum())
+    print(f"features: {int(fa.valid.sum())} / {int(fb.valid.sum())}")
+    print(f"mutual NNDR matches: {nm}")
+    print(f"epipolar inliers: {n_inl} (geometry {'OK' if bool(ok) else 'REJECTED'})")
+    return {"matches": nm, "inliers": n_inl, "ok": bool(ok)}
+
+
+def tool_convert_model(argv: List[str]):
+    """Convert pretrained checkpoints into the npz layout both packages load:
+    ``convert_model superpoint <superpoint_v1.pt> <out.npz>``,
+    ``convert_model superglue <superglue_indoor.pth> <out.npz>``,
+    ``convert_model netvlad <ckpt.pt> <out.npz>``."""
+    _, argv = _device(argv, resolve=False)
+    if len(argv) < 3:
+        print("usage: convert_model {superpoint|superglue|netvlad} <src> <out.npz>")
+        return 1
+    from rtabmap_tpu_torch.models import convert
+
+    kind, src, out = argv[0], argv[1], argv[2]
+    if kind == "superpoint":
+        convert.convert_superpoint_file(src, out)
+    elif kind == "superglue":
+        from rtabmap_tpu_torch.models.superglue_official import save_params
+
+        save_params(convert.convert_superglue(src), out)
+    elif kind == "netvlad":
+        np.savez(out, **convert.convert_netvlad(src))
+    else:
+        print(f"unknown model kind {kind!r}")
+        return 1
+    print(f"converted {kind} weights: {src} -> {out}")
+    return 0
+
+
 def _later(name: str, slice_: str):
     def tool(argv: List[str]):
         raise NotImplementedError(f"the {name} tool is not ported yet; it comes with {slice_}")
@@ -579,7 +658,6 @@ def _later(name: str, slice_: str):
 
 _LATER = {
     "calibration": "the calibration slice",
-    "convert_model": "the learned-model slice",
     "cleanup_local_grids": "the tools slice",
     "console_app": "the tools slice",
     "data_recorder": "the sensor-input slice",
@@ -590,7 +668,6 @@ _LATER = {
     "import_ref_db": "the reference-format store slice",
     "export_ref_db": "the reference-format store slice",
     "report": "the tools slice",
-    "matcher": "the learned-model slice",
     "lidar_mapping": "the tools slice (python -m rtabmap_tpu_torch.tools.lidar_mapping runs it)",
     "wifi_mapping": "the tools slice",
     "fleet_demo": "the parallel slice",
@@ -612,6 +689,8 @@ TOOLS = {
     "euroc_dataset": tool_euroc_dataset,
     "cid_sims_dataset": tool_cid_sims_dataset,
     "stereo_eval": tool_stereo_eval,
+    "matcher": tool_matcher,
+    "convert_model": tool_convert_model,
 }
 
 

@@ -4,18 +4,22 @@ Port of ``run_dataset`` from ``rtabmap_tpu/tools/dataset_runner.py`` (the
 reference's dataset tools' main loop: odometry, covariance >= 9999 starts
 a new map, the end-of-run ``graph::calcRMSE``, KittiDataset's
 calcKittiSequenceErrors). RGB-D frames are extracted with depth; stereo
-frames (a right image and ``stereo_model``) by GFTT/BRIEF on the left
-image and LK disparities at its keypoints (``ops/stereo.py``). A frame's
+frames (a right image and ``stereo_model``) by GFTT/BRIEF, or SuperPoint
+with ``Kp/DetectorStrategy`` 11/15/16, on the left image and LK
+disparities at its keypoints (``ops/stereo.py``; SuperPoint wants H and W
+multiples of 8: EuRoC's 752x480 is; on KITTI's 1241x376 the 2x2 pools
+floor, as the twin's VALID pools do, and the last column gets no score). A frame's
 IMU samples (at most ``IMU_PAD``) are integrated from the previous
 frame's orientation by the Madgwick or complementary filter, and the
 tracked pose takes its roll and pitch. Each frame's features go through
 ``OdometryF2M.process`` and ``Rtabmap.process``, with the frame's laser
-scan and local grid when it carries them. With a map store (``db``) each
-frame's raw image and depth go to ``process`` for the store. ``slam``
-continues an engine the caller made (e.g. ``Rtabmap.load`` of a store,
-for a resumed or a localization session) with a new odometry. Learned
-feature extraction (``Kp/DetectorStrategy`` 11) and profile traces raise
-``NotImplementedError`` naming the slice that brings them.
+scan and local grid when it carries them, and the learned strategies'
+float descriptors (``descf``, for ``Vis/CorNNType`` 6). With a map store
+(``db``) each frame's raw image and depth go to ``process`` for the store.
+``slam`` continues an engine the caller made (e.g. ``Rtabmap.load`` of a
+store, for a resumed or a localization session) with a new odometry.
+Profile traces raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 from __future__ import annotations
 
@@ -34,6 +38,19 @@ IMU_PAD = 64
 
 def _later(what: str, slice_: str):
     return NotImplementedError(f"{what} is not ported yet; it comes with {slice_}")
+
+
+def extract_stereo_learned(fe, gray, right, stereo_model):
+    """SuperPoint (``fe``, a learned ``FeatureExtractor``) on the left image,
+    3D from LK stereo at its keypoints -> (FrameFeatures, descf)."""
+    from rtabmap_tpu_torch.core.frame import FrameFeatures
+    from rtabmap_tpu_torch.ops.stereo import keypoints_3d_from_stereo
+
+    gl, gr = fe._image(gray), fe._image(right)
+    kps, desc, descf = fe.extract_superpoint(gl)
+    pts, ok = keypoints_3d_from_stereo(kps.uv, kps.valid, gl, gr, stereo_model)
+    return FrameFeatures(uv=kps.uv, desc=desc, pts3d=pts, valid=kps.valid, valid3d=ok,
+                         angle=kps.angle, response=kps.response), descf
 
 
 def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
@@ -89,6 +106,7 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
         return FrameFeatures(uv=kps.uv, desc=desc, pts3d=pts, valid=kps.valid, valid3d=ok,
                              angle=kps.angle, response=kps.response)
 
+
     est_odom, est_stamps, gt_poses, imu_quats, tracked = [], [], [], [], []
     times = {"extract_ms": [], "imu_ms": [], "odom_ms": [], "process_ms": []}
     n_loops = n_lost = 0
@@ -100,12 +118,16 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
             break
         _t = time.perf_counter()
         stereo_used = False
+        descf = None
         if fr.depth is not None:
-            feat, _ = fe.extract(fr.gray, fr.depth)
+            feat, descf = fe.extract(fr.gray, fr.depth)
         elif fr.right is not None:
             if stereo_model is None:
                 raise ValueError("a frame with a right image needs stereo_model")
-            feat = extract_stereo(fr.gray, fr.right)
+            if fe.learned:
+                feat, descf = extract_stereo_learned(fe, fr.gray, fr.right, stereo_model)
+            else:
+                feat = extract_stereo(fr.gray, fr.right)
             stereo_used = True
         else:
             raise ValueError("frame has neither depth nor right image")
@@ -165,7 +187,7 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
         _t = time.perf_counter()
         st = slam.process(slam_feat, pose, cov, stamp=fr.stamp, gt_pose=fr.gt_pose,
                           scan=fr.scan, grid=fr.grid,
-                          raw=(fr.gray, fr.depth) if keep_raw else None,
+                          raw=(fr.gray, fr.depth) if keep_raw else None, descf=descf,
                           extra_stats={"Odometry/TotalTime/ms": odom_ms, **capture_stats})
         sync()
         times["process_ms"].append((time.perf_counter() - _t) * 1000.0)

@@ -16,14 +16,23 @@ graph optimization). The sequences:
   local bundle adjustment, in a room twice the default size
   (``FULL_WORLD``);
 - ``full-default-room``: the same in the default room, where the odometry
-  loses track (kept to show it).
+  loses track (kept to show it);
+- ``full-revisit``: ``full``'s camera, room and sizes, its second lap
+  repeating the first exactly (exact revisits).
+
+``--learned`` runs the learned front end (``Kp/DetectorStrategy`` 11,
+SuperPoint, and ``Vis/CorNNType`` 6, the bundled attentional matcher).
+``--gt-odometry`` skips the odometry: each frame's features and its
+ground-truth pose go straight into ``Rtabmap.process`` (the loop of
+``tests/test_learned_stack.py``); the summary then adds each frame's
+highest hypothesis id and value.
 
 ``scripts/jax_rgbd_laps.py`` runs the same sequences through the JAX
 package; ``chip_smoke.py`` holds the port's runs on the card to it.
 
 Usage: python -m rtabmap_tpu_torch.tools.rgbd_laps [--device cpu]
-       [--sequence parity|full|full-default-room] [--frames N] [--seed S]
-       [--profile N]
+       [--sequence parity|full|full-default-room|full-revisit] [--frames N]
+       [--seed S] [--learned] [--gt-odometry] [--profile N]
 
 ``--profile N`` traces the last N frames with ``torch.profiler`` and
 prints the device's busy share, device operations a frame and the top
@@ -59,7 +68,9 @@ from rtabmap_tpu_torch.utils.params import Parameters
 # few corners in the views toward one corner of the room, and the F2M
 # odometry (the JAX package's as well) loses track there for good.
 FULL_WORLD = (8.0, 6.0, 8.0)
-SEQUENCES = ("parity", "full", "full-default-room")
+SEQUENCES = ("parity", "full", "full-default-room", "full-revisit")
+# the learned front end: SuperPoint features, the attentional matcher
+LEARNED = {"Kp/DetectorStrategy": 11, "Vis/CorNNType": 6}
 
 
 def sequence_spec(name: str) -> Dict:
@@ -68,19 +79,22 @@ def sequence_spec(name: str) -> Dict:
         poses = np.concatenate([loop_trajectory(48), loop_trajectory(48)[:10]])
         return {"size": (320, 240), "f": 300.0, "c": (160.0, 120.0), "poses": poses,
                 "max_kp": 384, "node_capacity": 128, "world": DEFAULT_WORLD.half_extent}
-    if name in ("full", "full-default-room"):
-        poses = np.concatenate([loop_trajectory(60),
-                                loop_trajectory(60, radius=1.45, height=0.05)])
-        world = FULL_WORLD if name == "full" else DEFAULT_WORLD.half_extent
+    if name in ("full", "full-default-room", "full-revisit"):
+        lap2 = (loop_trajectory(60) if name == "full-revisit"
+                else loop_trajectory(60, radius=1.45, height=0.05))
+        poses = np.concatenate([loop_trajectory(60), lap2])
+        world = DEFAULT_WORLD.half_extent if name == "full-default-room" else FULL_WORLD
         return {"size": (640, 480), "f": 500.0, "c": (319.5, 239.5), "poses": poses,
                 "max_kp": 512, "node_capacity": 1024, "world": world}
     raise KeyError(f"unknown sequence {name!r}; use one of {SEQUENCES}")
 
 
 def run_sequence(name: str, device: DeviceLike = None, frames: int = 0,
-                 params: Optional[Parameters] = None, on_frame=None, seed: int = 0) -> Dict:
+                 params: Optional[Parameters] = None, on_frame=None, seed: int = 0,
+                 gt_odometry: bool = False) -> Dict:
     """Render the sequence on ``device`` (None = the CUDA card) and run it
-    through ``run_dataset``. ``on_frame(i)`` is called right before frame i
+    through ``run_dataset``, or with ``gt_odometry`` through
+    ``run_gt_odometry``. ``on_frame(i)`` is called right before frame i
     is handed over (e.g. to start a profiler; every earlier frame ended in
     a device synchronize). Returns the summary (see ``summary``) with the
     raw run under ``"run"``."""
@@ -98,10 +112,54 @@ def run_sequence(name: str, device: DeviceLike = None, frames: int = 0,
                 on_frame(i)
             yield Frame(stamp=float(i), gray=gray, depth=depth, gt_pose=pose)
 
-    run = run_dataset(stream(), cam, params or Parameters(), max_kp=spec["max_kp"],
-                      node_capacity=spec["node_capacity"], verbose=False, device=dev,
-                      seed=seed)
+    runner = run_gt_odometry if gt_odometry else run_dataset
+    run = runner(stream(), cam, params or Parameters(), max_kp=spec["max_kp"],
+                 node_capacity=spec["node_capacity"], verbose=False, device=dev, seed=seed)
     return summary(run, poses)
+
+
+def run_gt_odometry(frames, cam, params: Parameters, max_kp: int = 512,
+                    node_capacity: int = 1024, verbose: bool = False,
+                    device: DeviceLike = None, seed: int = 0) -> Dict:
+    """Each frame's features (``FeatureExtractor.extract``, with the float
+    descriptors of a learned strategy) and its ground-truth pose straight
+    into ``Rtabmap.process`` (covariance 1e-4, the engine's generator at
+    42 + seed, as ``run_dataset`` seeds it). Returns ``run_dataset``'s
+    keys that ``summary`` reads (no odometry: ``odom_ms`` 0, none lost)
+    and each frame's highest hypothesis id and value."""
+    import torch
+
+    from rtabmap_tpu_torch.core.frame import FeatureExtractor
+    from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
+
+    dev = resolve_device(device)
+    fe = FeatureExtractor(cam, params, max_kp=max_kp, device=dev)
+    slam = Rtabmap(cam, params, node_capacity=node_capacity, words_per_frame=max_kp,
+                   seed=42 + seed, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    times = {"extract_ms": [], "odom_ms": [], "process_ms": []}
+    hyp_ids, hyp_values, gt = [], [], []
+    loops = 0
+    for i, fr in enumerate(frames):
+        t = time.perf_counter()
+        feat, descf = fe.extract(fr.gray, fr.depth)
+        sync()
+        times["extract_ms"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        st = slam.process(feat, fr.gt_pose, np.eye(6) * 1e-4, stamp=float(i),
+                          gt_pose=fr.gt_pose, descf=descf)
+        sync()
+        times["process_ms"].append((time.perf_counter() - t) * 1e3)
+        times["odom_ms"].append(0.0)
+        loops += int(st.loop_closure_id > 0)
+        hyp_ids.append(int(st.get("Loop/Highest hypothesis id/", 0)))
+        hyp_values.append(float(st.get("Loop/Highest hypothesis value/", 0.0)))
+        gt.append(np.asarray(fr.gt_pose, np.float32))
+        if verbose:
+            print(f"frame {i}: loop {st.loop_closure_id} hypothesis {hyp_ids[-1]} "
+                  f"{hyp_values[-1]:.3f}")
+    return {"frames": len(gt), "loops": loops, "lost": 0, "ate_odom": 0.0, "slam": slam,
+            "hyp_ids": hyp_ids, "hyp_values": hyp_values, **times}
 
 
 def closure_errors(slam) -> np.ndarray:
@@ -131,16 +189,20 @@ def summary(run: Dict, poses: np.ndarray) -> Dict:
     est = np.stack([opt[hist[k].ref_id] for k in have])
     frame_ms = np.add(run["odom_ms"], run["process_ms"]) + np.asarray(run["extract_ms"])
     ms = lambda x: {"median": float(np.median(x)), "p90": float(np.percentile(x, 90))}  # noqa: E731
-    return {"frames": run["frames"], "loops": run["loops"],
+    extra = {k: run[k] for k in ("hyp_ids", "hyp_values") if k in run}
+    mem = slam.memory
+    return {**extra, "frames": run["frames"], "loops": run["loops"],
             "proximity": int(sum(s.get("Proximity/Space links added/") for s in hist)),
             "lost": run["lost"], "ate_odom": run["ate_odom"],
             "ate_slam": metrics.ate_rmse(est, poses[have]), "ate_slam_frames": len(have),
             "closure_links": int(cerr.size),
             "closure_err_max_m": float(cerr.max()) if cerr.size else 0.0,
+            "closure_err_median_m": float(np.median(cerr)) if cerr.size else 0.0,
             "closure_err_over_10cm": int((cerr > 0.1).sum()),
             "optimized_poses": len(opt), "nodes": len(slam.memory.signatures),
-            "wm": len(slam.memory.wm), "n_words": slam.memory.vocab.n_words,
+            "wm": len(mem.wm), "n_words": mem.vocab.n_words,
             "quantize_calls": sum("TimingMem/Add new words/ms" in s.data for s in hist),
+            "cor_nn_type": mem.cor_nn_type, "matcher_calls": mem.matcher_calls,
             "frame_ms": ms(frame_ms), "extract_ms": ms(run["extract_ms"]),
             "odom_ms": ms(run["odom_ms"]), "process_ms": ms(run["process_ms"]),
             "run": run}
@@ -152,6 +214,10 @@ def main(argv=None):
     ap.add_argument("--sequence", default="full", choices=SEQUENCES)
     ap.add_argument("--frames", type=int, default=0, help="cut the sequence (0 = whole)")
     ap.add_argument("--seed", type=int, default=0, help="shifts the RANSAC generators")
+    ap.add_argument("--learned", action="store_true",
+                    help="SuperPoint features and the attentional matcher")
+    ap.add_argument("--gt-odometry", action="store_true",
+                    help="ground-truth poses into Rtabmap.process, no odometry")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace the last N frames")
     args = ap.parse_args(argv)
@@ -168,7 +234,9 @@ def main(argv=None):
                 prof.__enter__()  # the profiler's own start-up stays out of the window
                 window["t0"] = time.perf_counter()
     out = run_sequence(args.sequence, args.device, args.frames,
-                       on_frame=start if prof else None, seed=args.seed)
+                       params=Parameters(LEARNED) if args.learned else None,
+                       on_frame=start if prof else None, seed=args.seed,
+                       gt_odometry=args.gt_odometry)
     if prof is not None:
         # run_dataset's last frame ended in a synchronize: the window is whole
         wall_us = (time.perf_counter() - window["t0"]) * 1e6

@@ -1,16 +1,23 @@
 """Reference run of the JAX package for the port's RGB-D SLAM checks.
 
-Renders the two sequences of ``rtabmap_tpu_torch/tools/rgbd_laps.py``
+Renders the sequences of ``rtabmap_tpu_torch/tools/rgbd_laps.py``
 (``parity``: the sequence of ``tests/test_slam_e2e.py`` at 320x240;
-``full``: two 60-frame laps at 640x480) with the JAX renderer and runs
-them through the JAX package's ``run_dataset`` (``FeatureExtractor`` ->
-``OdometryF2M`` -> ``Rtabmap.process``, default parameters) on the CPU.
-Prints, per sequence, one JSON line: loop closures, proximity links,
-lost frames, odometry and SLAM ATE. ``chip_smoke.py`` takes its
-thresholds from these numbers.
+``full``: two 60-frame laps at 640x480; ``full-revisit``: the same with
+an exact second lap) with the JAX renderer and runs them through the JAX
+package's ``run_dataset`` (``FeatureExtractor`` -> ``OdometryF2M`` ->
+``Rtabmap.process``, default parameters) on the CPU. ``--learned`` sets
+``Kp/DetectorStrategy`` 11 and ``Vis/CorNNType`` 6 (``rgbd_laps.LEARNED``);
+``--gt-odometry`` feeds each frame's features and ground-truth pose
+straight into ``Rtabmap.process`` (the loop of
+``tests/test_learned_stack.py``) and prints each frame's highest
+hypothesis id and value. Prints, per sequence, one JSON line: loop
+closures, proximity links, lost frames, odometry and SLAM ATE, the
+closure links' errors. ``chip_smoke.py`` takes its thresholds from these
+numbers.
 
 Usage (from the repository root):
-    PYTHONPATH=. python scripts/jax_rgbd_laps.py [--sequence parity full] [--seed S]
+    PYTHONPATH=. python scripts/jax_rgbd_laps.py [--sequence parity full full-revisit]
+        [--seed S] [--learned] [--gt-odometry]
 """
 from __future__ import annotations
 
@@ -32,7 +39,30 @@ def _seed_engines(seed: int):
         cls.__init__ = functools.partialmethod(cls.__init__, seed=value)
 
 
-def run(name: str, seed: int = 0) -> dict:
+def run_gt_odometry(frames, cam, p, max_kp: int, node_capacity: int, seed: int) -> dict:
+    """Features and ground-truth poses straight into the JAX engine."""
+    from rtabmap_tpu.core.frame import FeatureExtractor
+    from rtabmap_tpu.engine.rtabmap import Rtabmap
+
+    import numpy as np
+
+    fe = FeatureExtractor(cam, p, max_kp=max_kp)
+    slam = Rtabmap(cam, p, node_capacity=node_capacity, words_per_frame=max_kp,
+                   seed=42 + seed)
+    hyp_ids, hyp_values, loops, n = [], [], 0, 0
+    for i, fr in enumerate(frames):
+        feat, descf = fe.extract(fr.gray, fr.depth)
+        st = slam.process(feat, fr.gt_pose, np.eye(6) * 1e-4, stamp=float(i),
+                          gt_pose=fr.gt_pose, descf=descf)
+        loops += int(st.loop_closure_id > 0)
+        hyp_ids.append(int(st.get("Loop/Highest hypothesis id/", 0)))
+        hyp_values.append(float(st.get("Loop/Highest hypothesis value/", 0.0)))
+        n += 1
+    return {"frames": n, "loops": loops, "lost": 0, "ate_odom": 0.0, "slam": slam,
+            "hyp_ids": hyp_ids, "hyp_values": hyp_values}
+
+
+def run(name: str, seed: int = 0, learned: bool = False, gt_odometry: bool = False) -> dict:
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -43,7 +73,7 @@ def run(name: str, seed: int = 0) -> dict:
     from rtabmap_tpu.tools.dataset_runner import run_dataset
     from rtabmap_tpu.utils import metrics
     from rtabmap_tpu.utils.params import Parameters
-    from rtabmap_tpu_torch.tools.rgbd_laps import sequence_spec
+    from rtabmap_tpu_torch.tools.rgbd_laps import LEARNED, closure_errors, sequence_spec
 
     spec = sequence_spec(name)
     W, H = spec["size"]
@@ -58,16 +88,26 @@ def run(name: str, seed: int = 0) -> dict:
                         gt_pose=np.asarray(pose))
 
     t0 = time.time()
-    out = run_dataset(frames(), cam, Parameters(), max_kp=spec["max_kp"],
-                      node_capacity=spec["node_capacity"], verbose=False)
+    p = Parameters()
+    if learned:
+        for k, v in LEARNED.items():
+            p.set(k, v)
+    if gt_odometry:
+        out = run_gt_odometry(frames(), cam, p, spec["max_kp"], spec["node_capacity"], seed)
+    else:
+        out = run_dataset(frames(), cam, p, max_kp=spec["max_kp"],
+                          node_capacity=spec["node_capacity"], verbose=False)
     slam = out["slam"]
+    cerr = closure_errors(slam)
     hist = slam.stats_history
     opt = slam.get_optimized_poses()
     # each frame's node; a node the graph dropped (e.g. an earlier session
     # after a lost frame) leaves its frames out of the SLAM ATE
     have = [k for k, s in enumerate(hist) if s.ref_id in opt]
     est = np.stack([opt[hist[k].ref_id] for k in have])
-    return {"sequence": name, "seed": seed, "frames": out["frames"], "loops": out["loops"],
+    extra = {k: out[k] for k in ("hyp_ids", "hyp_values") if k in out}
+    return {"sequence": name, "seed": seed, "learned": learned, "gt_odometry": gt_odometry,
+            "frames": out["frames"], "loops": out["loops"],
             "proximity": int(sum(s.get("Proximity/Space links added/") for s in hist)),
             "lost": out["lost"], "ate_odom": out["ate_odom"],
             "ate_slam": metrics.ate_rmse(est, spec["poses"][have]),
@@ -75,21 +115,32 @@ def run(name: str, seed: int = 0) -> dict:
             "optimized_poses": len(opt),
             "nodes": len(out["slam"].memory.signatures),
             "n_words": out["slam"].memory.vocab.n_words,
-            "seconds": round(time.time() - t0, 1)}
+            "closure_links": int(cerr.size),
+            "closure_err_median_m": float(np.median(cerr)) if cerr.size else 0.0,
+            "closure_err_max_m": float(cerr.max()) if cerr.size else 0.0,
+            "cor_nn_type": slam.memory.cor_nn_type,
+            "valid_keypoints_median": float(np.median(
+                [int(np.sum(s.desc.any(axis=1))) for s in slam.memory.signatures.values()
+                 if s.desc is not None])),
+            "seconds": round(time.time() - t0, 1), **extra}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sequence", nargs="+", default=["parity", "full"])
     ap.add_argument("--seed", type=int, default=0, help="shifts the RANSAC keys")
+    ap.add_argument("--learned", action="store_true",
+                    help="Kp/DetectorStrategy 11 and Vis/CorNNType 6")
+    ap.add_argument("--gt-odometry", action="store_true",
+                    help="ground-truth poses into Rtabmap.process, no odometry")
     args = ap.parse_args()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    if args.seed:
+    if args.seed and not args.gt_odometry:
         _seed_engines(args.seed)
     for name in args.sequence:
-        print(json.dumps(run(name, args.seed)), flush=True)
+        print(json.dumps(run(name, args.seed, args.learned, args.gt_odometry)), flush=True)
 
 
 if __name__ == "__main__":

@@ -119,11 +119,15 @@ def test_default_parameters_construct_and_refuse_what_is_not_ported():
                                     "Tpu/VocabularyCapacity": 1024}),
                    node_capacity=16, words_per_frame=8,
                    device="cpu").create_intermediate_nodes
-    # what stays refused: landmarks and learned float descriptors
+    # what stays refused: landmarks; learned float descriptors are ported
+    # (tests/test_torch_engine_learned.py) and kept with Vis/CorNNType 6 only
     with pytest.raises(NotImplementedError, match="landmarks"):
         slam.process(None, np.eye(3, 4), landmarks=[object()])
-    with pytest.raises(NotImplementedError, match="learned"):
-        slam.process(None, np.eye(3, 4), descf=np.zeros((8, 256), np.float32))
+    frame = FrameFeatures(torch.zeros((8, 2)), torch.ones((8, 256), dtype=torch.int8),
+                          torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool),
+                          torch.zeros(8, dtype=torch.bool), torch.zeros(8), torch.ones(8))
+    st = slam.process(frame, np.eye(3, 4), descf=np.zeros((8, 256), np.float32))
+    assert slam.memory.get(st.ref_id).descf is None
 
 
 @pytest.mark.slow

@@ -276,18 +276,46 @@ def test_epipolar_verification_matches_the_jax_engine(monkeypatch):
     assert len(injected) == 2        # the too-few case stops before the RANSAC
 
 
-def test_epipolar_verification_refuses_the_learned_matcher():
-    ts = Rtabmap(C.CameraModel.make(*CAM),
-                 Parameters({"VhEp/Enabled": True, "Vis/CorNNType": 6,
-                             "Tpu/VocabularyCapacity": 1024}),
-                 node_capacity=16, words_per_frame=8, device="cpu")
-    feats = FrameFeatures(torch.zeros((8, 2)), torch.ones((8, 256), dtype=torch.int8),
-                          torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool),
-                          torch.zeros(8, dtype=torch.bool), torch.zeros(8), torch.zeros(8))
-    a = ts.memory.create_signature(feats, np.eye(3, 4), 0.0)
-    b = ts.memory.create_signature(feats, np.eye(3, 4), 1.0)
-    with pytest.raises(NotImplementedError, match="learned-model slice"):
-        ts._verify_hypothesis_ep(b, a.id, Statistics())
+def test_epipolar_verification_refuses_the_learned_matcher(monkeypatch):
+    """With Vis/CorNNType 6 the epipolar check takes the bundled matcher's
+    pairs (the learned-model slice ported it; it used to raise): the same
+    two SuperPoint signatures (a revisit of one pose, features and float
+    descriptors extracted by the JAX package) verified by both engines,
+    the port given the twin's RANSAC samples; the pair and inlier counts
+    equal, and a signature without descf falls back to shared words."""
+    from rtabmap_tpu.core.frame import FeatureExtractor as JFeatureExtractor
+
+    jcam = JC.CameraModel.make(*CAM)
+    over = {"VhEp/Enabled": True, "Vis/CorNNType": 6, "Kp/DetectorStrategy": 11,
+            "Tpu/VocabularyCapacity": 8192}
+    fr, descf = JFeatureExtractor(jcam, JParams(over), max_kp=128).extract(
+        *JS.render(jnp.asarray(np.asarray(JS.loop_trajectory(32))[0]), jcam))
+    feats, descf = tuple(np.asarray(x) for x in fr), np.asarray(descf)
+    key = jax.random.PRNGKey(7)
+    port_check = EP.check_hypothesis
+
+    def check(uv_a, uv_b, valid, generator=None, **kw):
+        idx = torch.from_numpy(np.array(JR._sample_indices(key, jnp.asarray(valid.numpy()),
+                                                            128, 8)))
+        return port_check(uv_a, uv_b, valid, generator, indices=idx, **kw)
+
+    monkeypatch.setattr(EP, "check_hypothesis", check)
+    js, ts = _engines(over, 128)
+    monkeypatch.setattr(js, "_split_key", lambda: key)
+    out = []
+    for slam, frame in ((js, _pair(feats)[0]), (ts, _pair(feats)[1])):
+        a = slam.memory.create_signature(frame, np.eye(3, 4), 0.0)
+        b = slam.memory.create_signature(frame, np.eye(3, 4), 1.0)
+        a.descf, b.descf = descf, descf.copy()
+        sts = [JStatistics() if slam is js else Statistics() for _ in range(2)]
+        ok = slam._verify_hypothesis_ep(b, a.id, sts[0])
+        b.descf = None
+        ok_words = slam._verify_hypothesis_ep(b, a.id, sts[1])
+        out.append((ok, ok_words, [(st.get("Loop/Epipolar pairs/"),
+                                    st.get("Loop/Epipolar inliers/")) for st in sts]))
+    assert out[1] == out[0]
+    assert out[1][0] and out[1][2][0][0] == int(feats[3].sum())   # every valid keypoint
+    assert ts.memory.py_matcher.calls == 1
 
 
 def test_intermediate_nodes_match_the_jax_engine():

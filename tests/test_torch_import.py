@@ -19,7 +19,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "rtabmap_tpu") or m.startswith(("jax.", "jaxlib.", "rtabmap_tpu.")))
+             if m in ("jax", "jaxlib", "flax", "rtabmap_tpu")
+             or m.startswith(("jax.", "jaxlib.", "flax.", "rtabmap_tpu.")))
 print(len(names), bad)
 assert not bad, bad
 new = {"rtabmap_tpu_torch.ops.epipolar", "rtabmap_tpu_torch.core.laser_scan",
@@ -30,7 +31,10 @@ new = {"rtabmap_tpu_torch.ops.epipolar", "rtabmap_tpu_torch.core.laser_scan",
        "rtabmap_tpu_torch.tools.cli", "rtabmap_tpu_torch.tools.export_poses",
        "rtabmap_tpu_torch.ops.stereo", "rtabmap_tpu_torch.ops.flow",
        "rtabmap_tpu_torch.odometry.imu_filter", "rtabmap_tpu_torch.datasets.png",
-       "rtabmap_tpu_torch.datasets.layouts", "rtabmap_tpu_torch.tools.stereo_datasets"}
+       "rtabmap_tpu_torch.datasets.layouts", "rtabmap_tpu_torch.tools.stereo_datasets",
+       "rtabmap_tpu_torch.models", "rtabmap_tpu_torch.models.superpoint",
+       "rtabmap_tpu_torch.models.superglue", "rtabmap_tpu_torch.models.superglue_official",
+       "rtabmap_tpu_torch.models.netvlad", "rtabmap_tpu_torch.models.convert"}
 assert new <= set(names), sorted(new - set(names))
 # the readers decode PNG and read sensor.yaml themselves (tools/bow_mapping.py
 # imports PIL only when it reads the JPEG samples)
@@ -88,7 +92,13 @@ def test_entry_points_without_a_card_raise():
     from rtabmap_tpu_torch.memory.db_reader import DBReader, database_recovery
     from rtabmap_tpu_torch.tools import cli
 
+    from rtabmap_tpu_torch.models import superglue_official
+    from rtabmap_tpu_torch.models.netvlad import GlobalDescriptorIndex, NetVLAD
+    from rtabmap_tpu_torch.models.superglue import SuperGlueMatcher
+    from rtabmap_tpu_torch.models.superpoint import SuperPoint
+
     rgbd_p = Parameters({"Tpu/VocabularyCapacity": 1024})
+    learned_p = Parameters({"Kp/DetectorStrategy": 11, "Vis/CorNNType": 6})
     db = Database(":memory:", async_writes=False)
     eye = np.eye(3, 4, dtype=np.float32)
     for make in (lambda: Rtabmap(cam, p, node_capacity=16, words_per_frame=8),
@@ -118,7 +128,14 @@ def test_entry_points_without_a_card_raise():
                  lambda: cli.main(["detect_more_loop_closures", ":memory:"]),
                  lambda: cli.main(["global_ba", ":memory:"]),
                  lambda: cli.main(["recovery", ":memory:", ":memory:"]),
-                 lambda: cli.main(["export_cloud", ":memory:", "x.ply", "--mesh"])):
+                 lambda: cli.main(["export_cloud", ":memory:", "x.ply", "--mesh"]),
+                 lambda: SuperPoint.distilled(),
+                 lambda: SuperGlueMatcher.distilled(),
+                 lambda: superglue_official.to_device({"bin_score": 1.0}),
+                 lambda: NetVLAD(),
+                 lambda: GlobalDescriptorIndex(8),
+                 lambda: FeatureExtractor(cam, learned_p),
+                 lambda: cli.main(["matcher", "a.png", "b.png"])):
         with pytest.raises(RuntimeError):
             make()
     db.close()
@@ -135,23 +152,23 @@ def test_unported_paths_raise_not_implemented():
             words_per_frame=8, device="cpu")          # the RGB-D tick is ported
     with pytest.raises(NotImplementedError):
         Rtabmap(cam, Parameters({"RGBD/Enabled": False}), mesh=object(), device="cpu")
-    for strategy in (2, 11):   # FAST/BRIEF, SuperPoint
-        with pytest.raises(NotImplementedError):
-            FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": strategy}),
-                             device="cpu")
+    with pytest.raises(NotImplementedError):     # FAST/BRIEF
+        FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": 2}), device="cpu")
+    # SuperPoint is ported (tests/test_torch_superpoint.py)
+    assert FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": 11}), device="cpu").learned
     slam = Rtabmap(cam, Parameters({"RGBD/Enabled": False,
                                     "Tpu/VocabularyCapacity": 1024}),
                    node_capacity=16, words_per_frame=8, device="cpu")
-    for what in ({"landmarks": [object()]}, {"descf": np.zeros((8, 256), np.float32)}):
-        with pytest.raises(NotImplementedError):
-            slam.process(None, np.eye(3, 4), **what)
+    with pytest.raises(NotImplementedError):
+        slam.process(None, np.eye(3, 4), landmarks=[object()])
     # the store and dataset tools are ported; every other tool of the twin's
     # CLI names the slice that brings it
     from rtabmap_tpu_torch.tools import cli
 
     ported = {"info", "reprocess", "export", "export_cloud", "recovery",
               "detect_more_loop_closures", "global_ba", "reduce_graph", "rgbd_dataset",
-              "kitti_dataset", "euroc_dataset", "cid_sims_dataset", "stereo_eval"}
+              "kitti_dataset", "euroc_dataset", "cid_sims_dataset", "stereo_eval",
+              "matcher", "convert_model"}
     assert ported < set(cli.TOOLS) and len(cli.TOOLS) == 30
     for name in sorted(set(cli.TOOLS) - ported):
         with pytest.raises(NotImplementedError, match="slice"):

@@ -163,26 +163,30 @@ def test_compute_transform_and_batch(sigs):
 
 
 def test_unported_correspondence_modes_raise(sigs):
-    for params in ({"Vis/CorNNType": 6}, {"Vis/CorNNType": 7}):
-        pm = MEM.Memory(Parameters({"Tpu/VocabularyCapacity": 1024, **params}),
-                        node_capacity=8, words_per_frame=K, device="cpu")
-        _, pm2 = _memories(sigs)
-        pm.signatures = pm2.signatures
-        with pytest.raises(NotImplementedError):
-            pm.compute_transform(1, 2, CAM, torch.Generator())
-    # Vis/CorType 1 is ported (optical flow: tests/test_torch_flow_imu.py);
-    # signatures without their images register by descriptors, as the
-    # twin's do: the same result as Vis/CorType 0 on the same samples
+    pm = MEM.Memory(Parameters({"Tpu/VocabularyCapacity": 1024, "Vis/CorNNType": 7}),
+                    node_capacity=8, words_per_frame=K, device="cpu")
+    _, pm2 = _memories(sigs)
+    pm.signatures = pm2.signatures
+    with pytest.raises(NotImplementedError):
+        pm.compute_transform(1, 2, CAM, torch.Generator())
+    # Vis/CorType 1 (optical flow: tests/test_torch_flow_imu.py) and
+    # Vis/CorNNType 6 (the matcher: tests/test_torch_superglue.py) are
+    # ported; signatures without their images or float descriptors register
+    # by descriptors, as the twin's do: the same result as the default
+    # mode on the same samples
     _, pm = _memories(sigs)
-    flow = MEM.Memory(Parameters({"Tpu/VocabularyCapacity": 1024, "Vis/CorType": 1}),
-                      node_capacity=8, words_per_frame=K, device="cpu")
-    flow.signatures = pm.signatures
     _, mm, _ = MEM._registration_kernel(
         *(torch.from_numpy(np.array(x)) for x in (
             sigs[2]["desc"], sigs[2]["valid3d"], sigs[2]["pts3d"], sigs[2]["uv"],
             sigs[3]["desc"], sigs[3]["valid3d"], sigs[3]["uv"], sigs[3]["pts3d"])),
         torch.eye(3, 4), CAM, torch.Generator(), ITERS, 4.0, 20)
     idx = _indices(jax.random.PRNGKey(4), mm.valid)
-    got = flow.compute_transform(3, 4, CAM, indices=idx)
-    _same_result(got, pm.compute_transform(3, 4, CAM, indices=idx))
-    assert got[0] is not None and flow.signatures[3].image is None
+    for mode in ({"Vis/CorType": 1}, {"Vis/CorNNType": 6}):
+        other = MEM.Memory(Parameters({"Tpu/VocabularyCapacity": 1024, **mode}),
+                           node_capacity=8, words_per_frame=K, device="cpu")
+        other.signatures = pm.signatures
+        got = other.compute_transform(3, 4, CAM, indices=idx)
+        _same_result(got, pm.compute_transform(3, 4, CAM, indices=idx))
+        assert other.matcher_calls == 0
+        assert got[0] is not None and other.signatures[3].image is None
+        assert other.signatures[3].descf is None
