@@ -80,7 +80,7 @@ Phases — any failure ends the run with a non-zero exit code:
    (no lost frame, map ATE <= 0.08 m, a localization under 0.1 m), to the
    JAX package's lowest closure and localization counts over four seeds
    (``scripts/jax_rgbd_sessions.py``; the localization runs once for each
-   of eight seeds, each on its own copy of the resumed store, and the mean
+   of six seeds, each on its own copy of the resumed store, and the mean
    of their localized counts is held), to a frozen map in localization
    (WM holds only stored nodes, the node count within the STM ring plus a
    margin, the stored sessions' rows unchanged), and to the store's rows
@@ -112,7 +112,7 @@ Phases — any failure ends the run with a non-zero exit code:
    ``MT_VOXEL_TOL``. Then the full width, on copies of the ``rgbd_sessions``
    stores: on the mapping session's store ``reprocess`` (every node
    recreated, 90% of the session's loops, K1 once a quantize call),
-   ``detect_more_loop_closures`` at 0.5 m (map ATE at most 1.1 x before),
+   ``detect_more_loop_closures`` at 0.25 m (map ATE at most 1.1 x before),
    ``export`` in the five pose formats read back, ``recovery`` (the same
    nodes and links); on the resumed store (two sessions)
    ``global_bundle_adjustment`` (its path, poses on SO(3), its anchors in
@@ -158,6 +158,26 @@ Phases — any failure ends the run with a non-zero exit code:
    and lost frames. Each run keeps Vis/CorNNType 6 and calls the matcher;
    K1 launches once a quantize call and is timed at the closure run's end
    state.
+12. slice ``navigation`` (between ``rgbd_sessions`` and ``map_tools``):
+   navigation on a saved map (``tools/navigation.py``) on copies of the
+   mapping session's store. ``db_edit set_label`` labels ``dock`` (lap 1's
+   first node) and ``desk`` (its frame 30), read back by ``db_edit nodes``;
+   the store is loaded in localization mode with ``Rtabmap/MemoryThr`` 60
+   (lap 1 goes to LTM on the first tick) and lap 1 is driven at 640x480
+   from frame 30 back to frame 0 through ``run_dataset``, the goal sent as
+   soon as a path reaches the dock. Held to the JAX package's CPU runs
+   (``scripts/jax_navigation.py``, seeds 0-3): the path runs from the
+   current node to the dock, the current goal never moves back along it, a
+   tick pages a path node back from the store outside the hypothesis'
+   neighbourhood, the goal is reached within the JAX highest frame + 2, no
+   virtual link is left, K1 launches once a quantize call, every statistic
+   is finite; K1 timed at the drive's end state. Then ``set_goal_pose``
+   (desk's pose 0.2 m further out snaps to desk; 50 m off is refused),
+   ``compute_path`` and ``set_goal`` on the card equal to the CPU's, the
+   dot-graph, prediction and log-file dumps read back,
+   ``delete_last_location`` persisted and ``reset_memory`` on a further
+   copy, and a traced 2-frame run of the RGB-D parity sequence through
+   ``run_dataset`` (``Tpu/ProfileDir``) with its device busy share.
 
 Each slice zeroes the launch counts of its kernels right before each run
 and reads them right after; they must equal the calls the run made (K1:
@@ -210,12 +230,14 @@ from rtabmap_tpu_torch.tools import cli as CLI
 from rtabmap_tpu_torch.tools import dataset_runner as DR
 from rtabmap_tpu_torch.tools import bow_laps
 from rtabmap_tpu_torch.tools import lidar_mapping as LM
+from rtabmap_tpu_torch.tools import navigation as NAV
 from rtabmap_tpu_torch.tools import rgbd_laps
 from rtabmap_tpu_torch.tools import rgbd_scan as RSC
 from rtabmap_tpu_torch.tools import rgbd_sessions
 from rtabmap_tpu_torch.tools import stereo_datasets as SD
 from rtabmap_tpu_torch.tools.export_poses import import_poses
 from rtabmap_tpu_torch.utils import metrics
+from rtabmap_tpu_torch.utils.params import Parameters
 
 # H100 SXM dense peaks (NVIDIA data sheet): HBM bytes/s, int8 tensor op/s,
 # and FP32-pipe instructions/s outside the tensor cores: the data sheet's
@@ -295,8 +317,12 @@ JAX_SESSIONS_MIN = {"mapping": ("loops", 54), "resume": ("loops", 134),
 # on the CPU, and 11 to 19 on the card.
 # So the localization session runs on copies of the resumed store with
 # these seeds (odometry S, engine 42 + S), each held to every per-run
-# check, and the mean of their localized counts to the threshold.
-LOCALIZATION_SEEDS = tuple(range(8))
+# check, and the mean of their localized counts to the threshold. Six
+# seeds: eight read means of 16.1 and 16.2 on the card, four
+# 15.25 in one run (15, 15, 15, 16; PERF.md section 6), close to the
+# threshold of 14; six keep most of the cut that holds the whole script
+# inside the limit on a slow host.
+LOCALIZATION_SEEDS = tuple(range(6))
 LOCALIZATION_ERROR_BOUND = 0.1   # tests/test_localization.py's bound
 # Frozen map: nodes past the stored ones, at most the STM ring plus this
 # margin (tests/test_localization.py's).
@@ -1582,7 +1608,6 @@ def check_stereo_learned(root: str) -> dict:
     card's keypoints."""
     from rtabmap_tpu_torch.datasets.readers import EurocDataset
     from rtabmap_tpu_torch.ops import stereo as ST
-    from rtabmap_tpu_torch.utils.params import Parameters
 
     args = SD.write_layout("full", root, torch.device("cuda"), frames=1)
     ds = EurocDataset(args[-1])
@@ -1616,8 +1641,6 @@ def learned_run(name: str, gt: bool) -> tuple:
     """One learned run on the card; checks the state on the card, K1 once
     a quantize call, the matcher still selected and called, finite
     statistics. Returns (summary, K1 launches, engine)."""
-    from rtabmap_tpu_torch.utils.params import Parameters
-
     K1.knn2.launches = 0
     out = rgbd_laps.run_sequence(name, torch.device("cuda"),
                                  params=Parameters(rgbd_laps.LEARNED), gt_odometry=gt)
@@ -1656,9 +1679,9 @@ def learned_run(name: str, gt: bool) -> tuple:
     return out, launches, slam
 
 
-def k1_at_end_state(slam) -> dict:
-    """K1 at the learned run's end state: the last frame's 512 descriptors
-    against the dictionary's valid prefix, as the quantize call passes it."""
+def k1_at_end_state(slam, case: str = "learned-end-state") -> dict:
+    """K1 at a run's end state: the last frame's 512 descriptors against
+    the dictionary's valid prefix, as the quantize call passes it."""
     voc = slam.memory.vocab
     n = max(voc.n_words, 1)
     sl, va = voc.slab[:n], voc.word_valid[:n]
@@ -1667,10 +1690,10 @@ def k1_at_end_state(slam) -> dict:
     d, i = K1.knn2(q, sl, va)
     dr, ir = K1.knn2_reference(q, sl, va)
     if not (torch.equal(d, dr) and torch.equal(i, ir)):
-        fail("vocab_knn2 disagrees with its plain version at the learned end state")
+        fail(f"vocab_knn2 disagrees with its plain version at the {case}")
     w8 = -(-n // 8) * 8
     bound, bound_by = knn2_bound_ms(q.shape[0], n, int(va.sum()))
-    row = {"kernel": "vocab_knn2", "case": "learned-end-state", "Q": q.shape[0], "W": n,
+    row = {"kernel": "vocab_knn2", "case": case, "Q": q.shape[0], "W": n,
            "n_valid": int(va.sum()), "equal": True,
            "kernel_ms": time_ms(lambda: K1.knn2(q, sl, va)),
            "graph_ms": graph_ms(lambda: K1.knn2(q, sl, va)),
@@ -1746,14 +1769,17 @@ def run_learned_slice() -> int:
 # 1e-4 of its CPU run and of the dense solve.
 MT_VOXEL_TOL, MT_VOXEL_SHARE, MT_FLIP_TSDF = 1e-5, 1e-3, 1e-3
 MT_ATLAS_TOL, MT_FACE_CAMERA_SHARE, MT_BA_TOL = 1e-4, 0.999, 1e-4
-# The full-width checks: detect_more_loop_closures at a 0.5 m radius (each
+# The full-width checks: detect_more_loop_closures at a 0.25 m radius (each
 # accepted closure is one graph solve and one gate; many of the padded
 # subgraph solves run all 100 LM iterations, ROADMAP.md section 3), its
 # map ATE after at most 1.1 x before. On one mapping store on the card
 # (scripts/detect_more_radius.py) the tool's 1 m sweep took 282 s (1,258
 # solves, 362 closures, ATE 0.74 x before), 0.5 m 130 s (598 solves, 321
-# closures, 0.52 x): the cut that keeps the whole script, with the stereo
-# phase, inside 1,000 s on a slow host (PERF.md section 6). 90% of the mesh's
+# closures, 0.52 x); on another store on a slower host 0.5 m took 165 s
+# in the whole script, 0.35 m 92.9 s (226 closures, 0.91 x), 0.3 m 45.8 s
+# (122, 0.93 x), 0.25 m 36.4 s (108, 0.85 x): the cut that keeps the whole
+# script, with the navigation phase, inside the limit on that host
+# (PERF.md section 6). 90% of the mesh's
 # vertices within two voxels of one of the hall's planes; texels of
 # observed faces correlated at least 0.8 with the hall's texture; the
 # reprocessed loops at least 90% of the mapping session's.
@@ -1765,7 +1791,7 @@ MT_ATLAS_TOL, MT_FACE_CAMERA_SHARE, MT_BA_TOL = 1e-4, 0.999, 1e-4
 # within 0.10 m) moves the map off the ground truth in this hall, in the
 # JAX package on the CPU too (scripts/jax_global_ba.py on the port's
 # stores, PERF.md); the ratio is printed.
-MT_RADIUS, MT_ATE_RATIO, MT_ON_PLANES, MT_TEXEL_CORR = 0.5, 1.1, 0.9, 0.8
+MT_RADIUS, MT_ATE_RATIO, MT_ON_PLANES, MT_TEXEL_CORR = 0.25, 1.1, 0.9, 0.8
 MT_BA_TWIN_RATIO = 1.1
 MT_SO3_TOL, MT_ANCHOR_TOL = 1e-4, 1e-5
 # Pose files print six decimals; in formats 1, 3 and 4 the rotation passes
@@ -1910,8 +1936,6 @@ def map_tools_same_inputs() -> dict:
 def _resume(path: str, cam, dev):
     """(engine resumed on the store at ``path`` without a new session, the
     store) at the sessions' sizes."""
-    from rtabmap_tpu_torch.utils.params import Parameters
-
     spec = rgbd_laps.sequence_spec("full")
     db = Database(path)
     return Rtabmap.load(db, cam, Parameters(), node_capacity=spec["node_capacity"],
@@ -2163,6 +2187,212 @@ def keep_stripped(src: str, out_dir: str):
     print(json.dumps({"kept_store": dst, "bytes": os.path.getsize(dst)}), flush=True)
 
 
+# The navigation phase (tools/navigation.py) on a copy of the rgbd_sessions
+# mapping store: labels through db_edit, the store loaded in localization
+# mode with Rtabmap/MemoryThr 60, lap 1 driven from frame 30 back to the
+# dock. The JAX package's CPU runs of the same drive on its own full-width
+# stores (scripts/jax_navigation.py, seeds 0-3) reach the goal at frame 28
+# each (planned after frame 1; paths of 23, 24, 19, 17 nodes with 5, 5, 6,
+# 13 of them in LTM; 21, 24, 14, 16 ticks paging a path node outside the
+# highest hypothesis' neighbourhood; no virtual link left). The
+# resumed-session mode (a new mapping session with the same MemoryThr)
+# aborts its path at every seed (status -1 three ticks after planning:
+# the newest node of the new session has no optimized pose until a
+# closure joins the map), so the phase drives localization mode.
+JAX_NAV = {"reached_at_max": 28}
+NAV_REACHED_MARGIN = 2
+NAV_DESK_OFFSET = 0.2     # set_goal_pose's target: desk's pose plus 0.2 m, outward
+NAV_FAR = 50.0            # a pose this far off the map is refused
+NAV_TRACE_FRAMES = 2      # shows that Tpu/ProfileDir writes a trace
+
+
+def _quiet(fn):
+    """fn() with its standard output (db_edit's node listing) discarded."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def _finite_stats(name, slam):
+    for st in slam.stats_history:
+        for k, v in st.data.items():
+            if not np.isfinite(v):
+                fail(f"{name}: statistic {k} = {v}")
+
+
+def run_navigation_slice(stores: str) -> int:
+    """Navigation on a saved map (tools/navigation.py) on copies of the
+    mapping session's store: labels through db_edit, read back; the
+    localization-mode drive to the dock with its checks; set_goal_pose to
+    desk and a refused far pose; the path on the card equal to the CPU's;
+    the map edits and dumps on further copies; a short traced run of the
+    RGB-D parity sequence through run_dataset. Returns K1's launches
+    in the drive."""
+    dev = torch.device("cuda")
+    work = os.path.join(stores, "nav")
+    os.makedirs(work, exist_ok=True)
+    nav = os.path.join(work, "nav.db")
+    shutil.copyfile(os.path.join(stores, "mapping.db"), nav)
+    dock, desk = _quiet(lambda: NAV.label_store(nav))
+    listed = _quiet(lambda: CLI.main(["db_edit", nav, "nodes"]))
+    labels = {r["id"]: r["label"] for r in listed if r["label"]}
+    if labels != {dock: "dock", desk: "desk"}:
+        fail(f"navigation: db_edit nodes reads the labels {labels}, set {dock}: dock, "
+             f"{desk}: desk")
+    for name in ("loaded", "edits", "cpu"):
+        shutil.copyfile(nav, os.path.join(work, f"{name}.db"))
+
+    K1.knn2.launches = 0
+    t0 = time.perf_counter()
+    tracker, run = NAV.navigate(nav, dev, seed=LOCALIZATION_SEEDS[0])
+    drive_s = time.perf_counter() - t0
+    launches = K1.knn2.launches
+    slam = run["slam"]
+    hist = slam.stats_history
+    quantize = sum("TimingMem/Add new words/ms" in st.data for st in hist)
+    res = tracker.summary()
+    ticks = res.pop("ticks")
+    planning = [t["planning_ms"] for t in ticks]
+    res.update(lost=run["lost"], quantize_calls=quantize, vocab_knn2_launches=launches,
+               localized=int(sum(st.get("Loop/Localized/") > 0 for st in hist)),
+               goal_ids=[t["goal_id"] for t in ticks],
+               paged_by_path_only=[t["paged_by_path_only"] for t in ticks],
+               process_ms={"median": float(np.median(run["process_ms"])),
+                           "p90": float(np.percentile(run["process_ms"], 90))},
+               planning_ms={"median": float(np.median(planning)),
+                            "p90": float(np.percentile(planning, 90))},
+               drive_s=drive_s, dock=dock, desk=desk)
+    print(json.dumps({"slice": "navigation", **res}), flush=True)
+    _finite_stats("navigation", slam)
+    path = res["path"]
+    if not path or path[0] != res["start"] or path[-1] != dock:
+        fail(f"navigation: path {path} does not run from the current node {res['start']} "
+             f"to the dock {dock}")
+    if not (res["goal_index_monotone"] and res["goal_ids_on_path"]):
+        fail(f"navigation: the current goal moved backwards along the path: {res['goal_ids']}")
+    if res["ticks_paging_by_path_only"] < 1:
+        fail("navigation: no tick paged a path node back from the store outside the "
+             "hypothesis' neighbourhood")
+    limit = JAX_NAV["reached_at_max"] + NAV_REACHED_MARGIN
+    if res["reached_at"] is None or res["reached_at"] > limit or res["status"] != 1:
+        fail(f"navigation: goal reached at frame {res['reached_at']} (status {res['status']}),"
+             f" JAX CPU highest {JAX_NAV['reached_at_max']}")
+    if res["virtual_links_left"]:
+        fail(f"navigation: {res['virtual_links_left']} virtual links left")
+    if launches != quantize or launches == 0:
+        fail(f"navigation: vocab_knn2 launched {launches} times for {quantize} quantize calls")
+    if slam.memory.vocab.slab.device.type != "cuda":
+        fail("navigation: the vocabulary lies off the card")
+    k1_at_end_state(slam, "navigation-end-state")
+
+    # set_goal_pose: desk's pose 0.2 m further out snaps to desk; 50 m off is refused
+    p = np.asarray(slam.optimized_poses[desk], np.float32)
+    radial = np.asarray([p[0, 3], 0.0, p[2, 3]], np.float32)
+    target = p.copy()
+    target[:3, 3] += NAV_DESK_OFFSET * radial / np.linalg.norm(radial)
+    snapped = slam.set_goal_pose(target)
+    offset = float(np.linalg.norm(slam._path_transform_to_goal[:3, 3]))
+    snap_path = slam.get_path()
+    far = target.copy()
+    far[:3, 3] += NAV_FAR
+    refused = not slam.set_goal_pose(far) and slam.path_status == -1
+    row = {"slice": "navigation", "set_goal_pose": {"snapped": snapped,
+           "goal": snap_path[-1] if snap_path else 0, "offset_m": offset, "far_refused": refused}}
+    print(json.dumps(row), flush=True)
+    if not (snapped and snap_path and snap_path[-1] == desk
+            and abs(offset - NAV_DESK_OFFSET) < 1e-3 and refused):
+        fail(f"navigation: set_goal_pose {row['set_goal_pose']}")
+
+    # the dumps of the drive's engine, read back
+    dot = os.path.join(work, "map.dot")
+    edges = slam.generate_dot_graph(dot)
+    text = open(dot).read()
+    pred = os.path.join(work, "prediction.txt")
+    slam.dump_prediction(pred)
+    P = np.loadtxt(pred)
+    log_f = slam.write_log_files(work)
+    import csv
+
+    with open(log_f) as f:
+        log_rows = list(csv.reader(f))
+    with open(os.path.join(work, "LogI.csv")) as f:
+        logi_rows = list(csv.reader(f))
+    cols = P[:, np.abs(P).sum(0) > 0]
+    dumps = {"dot_edges": edges, "dot_edge_lines": text.count(" -- "),
+             "prediction_shape": list(P.shape),
+             "prediction_columns_sum_to_1": bool(np.allclose(cols.sum(0), 1.0, atol=1e-4)),
+             "log_rows": [len(log_rows), len(logi_rows)],
+             "log_columns": [len(log_rows[0]), len(logi_rows[0])]}
+    print(json.dumps({"slice": "navigation", "dumps": dumps}), flush=True)
+    if not (text.startswith("graph map {") and text.rstrip().endswith("}")
+            and dumps["dot_edge_lines"] == edges > 0):
+        fail(f"navigation: the dot file does not parse: {dumps}")
+    if P.shape != (slam.memory.node_capacity + 1,) * 2 or not dumps["prediction_columns_sum_to_1"]:
+        fail(f"navigation: the prediction matrix {dumps}")
+    if not (len(log_rows) == len(logi_rows) == len(hist) + 1
+            and all(len(r) == len(log_rows[0]) for r in log_rows)
+            and np.isfinite(np.asarray(log_rows[1:], float)).all()):
+        fail(f"navigation: the log files {dumps}")
+    slam.memory.db.close()
+
+    # the path on the card equals the path on the CPU, on the same store
+    cam = CAMERA.CameraModel.make(*rgbd_sessions.camera())
+    spec = rgbd_laps.sequence_spec("full")
+    paths = {}
+    for label, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        db = Database(os.path.join(work, "loaded.db" if label == "cuda" else "cpu.db"))
+        e = Rtabmap.load(db, cam, Parameters(NAV.drive_params()),
+                         node_capacity=spec["node_capacity"], words_per_frame=spec["max_kp"],
+                         device=d)
+        planned = e.compute_path(dock)
+        ok = e.set_goal(dock)
+        paths[label] = (planned, ok, e.get_path(), e.get_path_current_goal(),
+                        [np.asarray(q).tolist() for q in e.get_path_next_poses()])
+        db.close()
+    print(json.dumps({"slice": "navigation", "card_vs_cpu": {
+        "path": paths["cuda"][0], "equal": paths["cuda"] == paths["cpu"]}}), flush=True)
+    if paths["cuda"] != paths["cpu"] or not paths["cuda"][1] or paths["cuda"][0][-1] != dock:
+        fail(f"navigation: the card's path {paths['cuda'][:2]} differs from the CPU's "
+             f"{paths['cpu'][:2]}")
+
+    # map edits on a further copy: delete_last_location persists; reset_memory
+    edits = os.path.join(work, "edits.db")
+    db = Database(edits)
+    e = Rtabmap.load(db, cam, None, node_capacity=spec["node_capacity"],
+                     words_per_frame=spec["max_kp"], new_session=False, device=dev)
+    n_before, last, map_id = len(db.node_infos()), e.get_last_location_id(), e.memory.map_id
+    deleted = e.delete_last_location()
+    db.flush()
+    reader = Database(edits, async_writes=False)
+    ids_after = [r["id"] for r in reader.node_infos()]
+    reader.close()
+    e.reset_memory()
+    db.close()
+    row = {"nodes_before": n_before, "deleted": last, "nodes_after": len(ids_after),
+           "reset_wm": len(e.get_wm()), "reset_map_id": [map_id, e.memory.map_id]}
+    print(json.dumps({"slice": "navigation", "edits": row}), flush=True)
+    if not (deleted and len(ids_after) == n_before - 1 and last not in ids_after):
+        fail(f"navigation: delete_last_location did not persist: {row}")
+    if e.get_wm() or e.get_stm() or e.memory.signatures or e.memory.map_id != map_id + 1:
+        fail(f"navigation: reset_memory left {row}")
+
+    # a traced run of the RGB-D parity sequence through run_dataset (Tpu/ProfileDir)
+    trace_dir = os.path.join(work, "trace")
+    t0 = time.perf_counter()
+    out = rgbd_laps.run_sequence("parity", dev, NAV_TRACE_FRAMES,
+                                 params=Parameters({"Tpu/ProfileDir": trace_dir}))
+    trace = out["run"]["trace"]
+    row = {"frames": out["frames"], "seconds": time.perf_counter() - t0,
+           "trace_bytes": os.path.getsize(trace["path"]) if trace["path"] else 0, **trace}
+    print(json.dumps({"slice": "navigation", "trace": row}), flush=True)
+    if not (row["trace_bytes"] > 0 and os.path.dirname(trace["path"]) == trace_dir
+            and 0.0 < trace["device_busy_share"] <= 1.0 and trace["device_ops"] > 0):
+        fail(f"navigation: the parity run's trace {row}")
+    return launches
+
+
 def main():
     keep = sys.argv[sys.argv.index("--keep-store") + 1] if "--keep-store" in sys.argv else None
     if not torch.cuda.is_available():
@@ -2197,6 +2427,7 @@ def main():
         k1["launches"] += launches
         launches, sessions = phase("rgbd_sessions", lambda: run_sessions(path, mapping, stores))
         k1["launches"] += launches
+        k1["launches"] += phase("navigation", lambda: run_navigation_slice(stores))
         if keep:
             keep_stripped(os.path.join(stores, "resumed.db"), keep)
         k1["launches"] += phase("map_tools", lambda: run_map_tools(stores, sessions))

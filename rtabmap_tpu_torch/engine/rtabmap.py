@@ -51,13 +51,24 @@ between nearby nodes, each accepted closure optimized and gated on its
 own), ``refine_links``, ``reject_last_loop_closure``, ``add_user_link``,
 ``global_bundle_adjustment`` (tracks from shared word ids, two anchored
 cameras; ``optim/ba.bundle_adjust_large`` past 600,000 cameras x tracks),
-the getters, ``export_poses``, ``get_signature_copy`` and ``get_3d_map``.
+the getters, ``export_poses``, ``get_signature_copy`` and ``get_3d_map``;
+labels and user data (``set_label``, ``set_user_data``, written through
+to the store for a node in LTM), the map edits ``set_optimized_poses``,
+``delete_last_location`` and ``reset_memory``, and the dumps
+``generate_dot_graph``, ``dump_prediction`` and ``write_log_files``.
+
+The topological planner (Rtabmap::computePath and updateGoalIndex):
+``set_goal`` plans an A* path over the links to a node (``set_goal_pose``
+to the nearest node of a pose), and every tick after it the retrieval
+stage also pages the path's upcoming nodes back from LTM and the goal
+tracking (``update_goal_index``) keeps the path chained by virtual links,
+advances the current node and sub-goal, and ends the path when the goal
+is reached (``path_status`` 1) or the robot is stuck (-1); the tick
+reports ``Planning/Current goal id/``, ``Planning/Path length/`` and
+``Planning/Status/``.
 
 Raised as not yet ported, naming the slice that brings them: multi-device
-meshes, landmarks, learned-descriptor inputs (and with them the learned
-matcher of the epipolar check, ``Vis/CorNNType`` 6) and GPS priors. Not
-there yet: the path planner, labels and user data, ``delete_last_location``,
-``reset_memory`` and the dot-graph, prediction and log-file dumps.
+meshes, landmarks and GPS priors.
 """
 from __future__ import annotations
 
@@ -77,7 +88,7 @@ from rtabmap_tpu_torch.geometry import transform as T
 from rtabmap_tpu_torch.memory.memory import (
     LINK_GLOBAL_CLOSURE, LINK_LANDMARK, LINK_LOCAL_SPACE_CLOSURE, LINK_LOCAL_TIME_CLOSURE,
     LINK_NEIGHBOR, LINK_NEIGHBOR_MERGED, LINK_POSE_PRIOR, LINK_USER_CLOSURE,
-    Link, Memory, Signature,
+    LINK_VIRTUAL_CLOSURE, Link, Memory, Signature,
 )
 from rtabmap_tpu_torch.optim import pose_graph as PG
 from rtabmap_tpu_torch.utils.graph import PoseStore
@@ -124,6 +135,18 @@ def info_from_cov(cov: np.ndarray, min_var: float = 1e-6, max_var: float = 1e4) 
 
 def _not_ported(what: str, slice_: str):
     return NotImplementedError(f"{what} is not ported yet; it comes with {slice_}")
+
+
+def _relative32(a, b) -> np.ndarray:
+    """inverse(a) o b of two (3,4) host poses in float32 (the twin's jnp
+    arithmetic)."""
+    return T.relative(torch.as_tensor(np.asarray(a, np.float32)),
+                      torch.as_tensor(np.asarray(b, np.float32))).numpy()
+
+
+def _compose32(a, b) -> np.ndarray:
+    return T.compose(torch.as_tensor(np.asarray(a, np.float32)),
+                     torch.as_tensor(np.asarray(b, np.float32))).numpy()
 
 
 def _pad_pow2(n: int, floor: int) -> int:
@@ -226,6 +249,19 @@ class Rtabmap:
         self.solves: List[Tuple[int, int, float]] = []
         # the last global_bundle_adjustment's problem, path and costs
         self.global_ba_stats: Optional[Dict] = None
+
+        # the topological planner's goal tracking (reference:
+        # Rtabmap::computePath and updateGoalIndex)
+        self.goal_reached_radius = float(p["RGBD/GoalReachedRadius"])
+        self.plan_stuck_iterations = int(p["RGBD/PlanStuckIterations"])
+        self._path: List[Tuple[int, np.ndarray]] = []  # (node id, pose when planned)
+        self._path_current_index = 0
+        self._path_goal_index = 0
+        self._path_transform_to_goal = np.eye(3, 4, dtype=np.float32)
+        self._path_unreachable: set = set()
+        self._path_stuck_count = 0
+        self._path_stuck_dist = 0.0
+        self.path_status = 0  # 0 idle or cleared, 1 goal reached, -1 aborted
 
     @classmethod
     def load(cls, db, cam: C.CameraModel, params: Optional[Parameters] = None,
@@ -539,11 +575,15 @@ class Rtabmap:
             st.add("Loop/Hypothesis ratio/", hypothesis_value / self.last_hypothesis[1])
         self.last_hypothesis = (hypothesis_id, hypothesis_value)
 
-        # --- E. retrieval: page the hypothesis neighbourhood back from LTM
-        if hypothesis_id > 0:
+        # --- E. retrieval: page the hypothesis neighbourhood back from LTM,
+        # and the planned path's upcoming nodes
+        if hypothesis_id > 0 or self._path:
             with st.time_stage("Timing/Retrieval/ms"):
-                near = self._graph_neighborhood(hypothesis_id, self.retrieval_margin)
-                ltm_ids = [i for i in near
+                near = (self._graph_neighborhood(hypothesis_id, self.retrieval_margin)
+                        if hypothesis_id > 0 else [])
+                near += [i for i, _ in self._path[self._path_current_index:
+                                                  self._path_goal_index + 3]]
+                ltm_ids = [i for i in dict.fromkeys(near)
                            if (s := self.memory.get(i)) is not None and s.in_ltm]
                 st.add("Loop/Reactivate id/", ltm_ids[0] if ltm_ids else 0)
                 if ltm_ids:
@@ -656,6 +696,14 @@ class Rtabmap:
                 self._consecutive_rejections = 0
         elif accepted_id > 0 or st.get("Loop/Localized/") > 0:
             self._consecutive_rejections = 0
+
+        # --- H2. goal tracking on the planned path
+        if self._path:
+            with st.time_stage("Timing/Path planning/ms"):
+                self.update_goal_index()
+                st.add("Planning/Current goal id/", self.get_path_current_goal())
+                st.add("Planning/Path length/", len(self.get_path()))
+                st.add("Planning/Status/", self.path_status)
 
         # --- K. transfer (WM -> LTM)
         with st.time_stage("Timing/Memory cleanup/ms"):
@@ -1687,6 +1735,276 @@ class Rtabmap:
 
     def get_map_correction(self) -> np.ndarray:
         return np.asarray(self.map_correction)
+
+    def set_label(self, node_id: int, label: str) -> bool:
+        s = self.memory.get(node_id)
+        if s is None:
+            return False
+        s.label = label
+        return True
+
+    def set_user_data(self, node_id: int, data: Optional[bytes]) -> bool:
+        """Attach or replace a node's opaque user data (Rtabmap::setUserData);
+        a node in LTM is written through to the store."""
+        s = self.memory.get(node_id)
+        if s is None:
+            return False
+        s.user_data = data
+        if s.in_ltm and self.memory.db is not None:
+            self.memory.db.save_signature(s)
+        return True
+
+    def set_optimized_poses(self, poses: Dict[int, np.ndarray]) -> None:
+        """Seed or override optimized poses (Rtabmap::setOptimizedPoses)."""
+        self.optimized_poses.update({i: np.asarray(p, np.float32) for i, p in poses.items()})
+
+    def delete_last_location(self) -> bool:
+        """Drop the newest node, from the store too
+        (Rtabmap::deleteLastLocation)."""
+        last = self.get_last_location_id()
+        if not last:
+            return False
+        self.memory.remove_node(last)
+        if self.memory.db is not None:
+            self.memory.db.delete_node(last)
+        self.optimized_poses.pop(last, None)
+        if self.loop_closure_id == last:
+            self.loop_closure_id = 0
+        return True
+
+    def reset_memory(self) -> None:
+        """Clear the map and start a new session; ids continue
+        (Rtabmap::resetMemory)."""
+        self.memory.clear()
+        self.optimized_poses.clear()
+        self.bayes.reset()
+        self.map_correction = np.eye(3, 4, dtype=np.float32)
+        self.loop_closure_id = 0
+        self.last_hypothesis = (0, 0.0)
+        self._last_pose = None
+        self._odom_cache_poses.clear()
+        self._odom_cache_links.clear()
+        self.clear_path(0)
+
+    # ---------------------------------------------------- the path planner
+    def compute_path(self, goal_id: int) -> List[int]:
+        """Topological path from the newest node to ``goal_id``, [] when the
+        goal is unreachable (Rtabmap::computePath)."""
+        from rtabmap_tpu_torch.utils import graph as G
+
+        if not self.memory.stm and not self.memory.wm:
+            return []
+        start = (self.memory.stm or self.memory.wm)[-1]
+        adj = G.links_to_adjacency(self.memory.signatures)
+        return G.compute_path(self.optimized_poses, adj, start, goal_id)
+
+    def set_goal(self, goal_id: int) -> bool:
+        """Plan to a node and start tracking the path (path_status -1 when
+        there is no path with optimized poses)."""
+        ids = self.compute_path(goal_id)
+        if not ids or any(i not in self.optimized_poses for i in ids):
+            self.path_status = -1
+            return False
+        self.clear_path(0)
+        self._path = [(i, np.asarray(self.optimized_poses[i], np.float32)) for i in ids]
+        self._path_transform_to_goal = np.eye(3, 4, dtype=np.float32)
+        self.path_status = 0
+        return True
+
+    def set_goal_pose(self, goal_pose, tolerance: float = -1.0) -> bool:
+        """Plan to a metric pose: the nearest node within ``tolerance`` m
+        (< 0: RGBD/LocalRadius, 0: unbounded) becomes the goal and the
+        offset to the pose is kept as the goal transform."""
+        goal_pose = np.asarray(goal_pose, np.float32)
+        if tolerance < 0:
+            tolerance = self.local_radius
+        best, best_d = 0, float("inf")
+        for i, pose in self.optimized_poses.items():
+            d = float(np.linalg.norm(pose[:3, 3] - goal_pose[:3, 3]))
+            if d < best_d:
+                best, best_d = i, d
+        if best == 0 or (tolerance > 0 and best_d > tolerance):
+            self.path_status = -1
+            return False
+        if not self.set_goal(best):
+            return False
+        self._path_transform_to_goal = _relative32(self.optimized_poses[best], goal_pose)
+        return True
+
+    def clear_path(self, status: int):
+        """Stop following the path: its virtual links go; ``status`` -1
+        aborted, 1 reached, 0 cleared."""
+        for i, _ in self._path:
+            self.memory.remove_virtual_links(i)
+        self._path = []
+        self._path_current_index = 0
+        self._path_goal_index = 0
+        self._path_unreachable = set()
+        self._path_stuck_count = 0
+        self._path_stuck_dist = 0.0
+        self.path_status = status
+
+    def get_path(self) -> List[int]:
+        """The path's remaining node ids, current node to the goal."""
+        return [i for i, _ in self._path[self._path_current_index:]]
+
+    def get_path_current_goal(self) -> int:
+        """The intermediate goal node driven to now (0 without a path)."""
+        if not self._path:
+            return 0
+        return self._path[self._path_goal_index][0]
+
+    def get_path_next_poses(self) -> List[np.ndarray]:
+        """Optimized poses from the current node to the current goal."""
+        return [np.asarray(self.optimized_poses[i])
+                for i, _ in self._path[self._path_current_index:self._path_goal_index + 1]
+                if i in self.optimized_poses]
+
+    def update_goal_index(self) -> None:
+        """Track the path after a tick (Rtabmap::updateGoalIndex): chain the
+        path's consecutive nodes with weak virtual links (information
+        0.01 I) up to RGBD/LocalRadius ahead, end the path when the newest
+        node is within RGBD/GoalReachedRadius of the goal, push the
+        current goal to the farthest path node within the local radius,
+        move the current index to the nearest path node, and count ticks
+        without progress against RGBD/PlanStuckIterations."""
+        if not self.rgbd_mode or not self._path:
+            return
+        for i, _ in self._path[:self._path_current_index]:
+            self.memory.remove_virtual_links(i)
+        dist_so_far = 0.0
+        for k in range(self._path_current_index + 1, len(self._path)):
+            ia, pa = self._path[k - 1]
+            ib, pb = self._path[k]
+            if self.local_radius > 0:
+                dist_so_far += float(np.linalg.norm(pb[:3, 3] - pa[:3, 3]))
+            sa, sb = self.memory.get(ia), self.memory.get(ib)
+            if ia != ib and sa is not None and sb is not None and ib not in sa.links:
+                self.memory.add_link(Link(ib, ia, LINK_VIRTUAL_CLOSURE, _relative32(pb, pa),
+                                          np.eye(6, dtype=np.float32) * 0.01))
+            if 0 < self.local_radius < dist_so_far:
+                break
+
+        cur_id = (self.memory.stm or self.memory.wm)[-1]
+        cur_pose = self.optimized_poses.get(cur_id)
+        if cur_pose is None:
+            self.clear_path(-1)
+            return
+
+        goal_id, goal_pose0 = self._path[-1]
+        goal_pose = self.optimized_poses.get(goal_id, goal_pose0)
+        goal_abs = _compose32(goal_pose, self._path_transform_to_goal)
+        if float(np.linalg.norm(cur_pose[:3, 3] - goal_abs[:3, 3])) < self.goal_reached_radius:
+            self.clear_path(1)
+            return
+
+        # the farthest reachable intermediate goal within the local radius
+        goal_index = self._path_current_index
+        for k in range(self._path_current_index + 1, len(self._path)):
+            if self._path[k][0] not in self.optimized_poses:
+                break
+            d = float(np.linalg.norm(self._path[k][1][:3, 3]
+                                     - self._path[self._path_current_index][1][:3, 3]))
+            if (goal_index == self._path_current_index and k == len(self._path) - 1) \
+                    or k not in self._path_unreachable:
+                goal_index = k
+                if self.local_radius > 0 and d > self.local_radius:
+                    break
+        same_goal = goal_index == self._path_goal_index
+        self._path_goal_index = goal_index
+
+        # the nearest path node becomes the current index
+        best_k, best_d = self._path_current_index, float("inf")
+        for k in range(self._path_current_index, self._path_goal_index + 1):
+            p = self.optimized_poses.get(self._path[k][0])
+            if p is None:
+                continue
+            d = float(np.linalg.norm(cur_pose[:3, 3] - p[:3, 3]))
+            if d < best_d:
+                best_k, best_d = k, d
+        same_current = best_k == self._path_current_index
+        if not same_current:
+            self._path_current_index = best_k
+            self._path_unreachable.discard(best_k)
+
+        # stuck: neither index moved and the distance to the goal did not drop
+        if same_goal and same_current and self.plan_stuck_iterations > 0:
+            d_goal = float(np.linalg.norm(
+                cur_pose[:3, 3]
+                - self.optimized_poses.get(self.get_path_current_goal(), goal_abs)[:3, 3]))
+            if self._path_stuck_dist == 0.0 or d_goal < self._path_stuck_dist - 0.1:
+                self._path_stuck_dist = d_goal
+                self._path_stuck_count = 0
+            else:
+                self._path_stuck_count += 1
+                if self._path_stuck_count > self.plan_stuck_iterations:
+                    if self._path_goal_index < len(self._path) - 1:
+                        self._path_unreachable.add(self._path_goal_index)
+                        self._path_stuck_count = 0
+                    else:
+                        self.clear_path(-1)
+        else:
+            self._path_stuck_count = 0
+
+    # ------------------------------------------------------------- dumps
+    def generate_dot_graph(self, path: str) -> int:
+        """GraphViz DOT file of the pose graph (Rtabmap::generateDOTGraph):
+        closures as dashed red edges, landmarks as boxes; returns the
+        edges written."""
+        poses, links = self.get_graph()
+        n = 0
+        with open(path, "w") as fp:
+            fp.write("graph map {\n  node [shape=circle];\n")
+            for i in sorted(poses):
+                p = np.asarray(poses[i])[:, 3]
+                shape = "box" if i < 0 else "circle"
+                fp.write(f'  n{abs(i)} [shape={shape}, pos="{p[0]:.2f},{p[1]:.2f}!", '
+                         f'label="{i}"];\n')
+            seen = set()
+            for lk in links:
+                key = (min(lk.from_id, lk.to_id), max(lk.from_id, lk.to_id))
+                if key in seen:
+                    continue
+                seen.add(key)
+                style = "" if lk.type == LINK_NEIGHBOR else " [style=dashed, color=red]"
+                fp.write(f"  n{abs(lk.from_id)} -- n{abs(lk.to_id)}{style};\n")
+                n += 1
+            fp.write("}\n")
+        return n
+
+    def dump_prediction(self, path: str) -> None:
+        """The dense Bayes prediction matrix over the resident nodes, as
+        text (Rtabmap::dumpPrediction)."""
+        mem = self.memory
+        depth = min(self.bayes.kernel.shape[0] - 2, 8)
+        nbr_idx, nbr_margin = mem.ensure_neighbor_table(depth, 2 * depth + 1).flush()
+        P = BF.prediction_matrix(nbr_idx, nbr_margin, mem.host_wm,
+                                 self.bayes.kernel.cpu().numpy(), float(self.bayes.vp_prior))
+        np.savetxt(path, P, fmt="%.6f")
+
+    def write_log_files(self, directory: str) -> str:
+        """The statistics history as two CSV files (the reference's LogF and
+        LogI): ``LogI.csv`` the keys whose every value is an integer,
+        ``LogF.csv`` the rest; returns LogF's path."""
+        import csv
+
+        keys = sorted({k for st in self.stats_history for k in st.data})
+        int_keys = [k for k in keys
+                    if all(float(st.get(k, 0.0)).is_integer() for st in self.stats_history)]
+        float_keys = [k for k in keys if k not in int_keys]
+
+        def dump(path, cols, cast):
+            with open(path, "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["ref_id", "loop_id"] + cols)
+                for st in self.stats_history:
+                    w.writerow([st.ref_id, st.loop_closure_id] + [cast(st.get(k, 0.0))
+                                                                  for k in cols])
+
+        path_f = os.path.join(directory, "LogF.csv")
+        dump(path_f, float_keys, float)
+        dump(os.path.join(directory, "LogI.csv"), int_keys, lambda v: int(float(v)))
+        return path_f
 
     def export_poses(self, path: str, fmt: int = 0, optimized: bool = True) -> int:
         """Write the trajectory in one of the reference's five formats

@@ -487,6 +487,15 @@ class Memory:
         if self.db is not None:
             self.db.delete_link(from_id, to_id)
 
+    def remove_virtual_links(self, node_id: int):
+        """Drop every virtual-closure link touching a node (reference:
+        Memory::removeVirtualLinks; the planner's path chain)."""
+        s = self.signatures.get(node_id)
+        if s is None:
+            return
+        for other in [k for k, lk in s.links.items() if lk.type == LINK_VIRTUAL_CLOSURE]:
+            self.remove_link(node_id, other)
+
     # -------------------------------------------------------------- lifecycle
     def add_to_stm(self, sig: Signature, neighbor_link: Optional[Link] = None):
         """(reference: Memory::addSignatureToStm.) Signatures leaving the
@@ -529,10 +538,22 @@ class Memory:
         del self.signatures[sid]
 
     def remove_node(self, sid: int):
+        """delete_signature and the STM/WM lists (reference:
+        Memory::deleteLocation)."""
         if sid in self.stm:
             self.stm.remove(sid)
         self._wm_discard(sid)
         self.delete_signature(sid)
+
+    def clear(self):
+        """Drop every signature and start a new session (reference: the
+        Memory::init path behind Rtabmap::resetMemory). The store stays
+        attached; ids continue."""
+        for sid in list(self.signatures):
+            self.remove_node(sid)
+        self.stm.clear()
+        self.wm.clear()
+        self._map_id += 1
 
     def is_bad_signature(self, sig: Signature) -> bool:
         """Too few words for reliable loop closure (reference:

@@ -69,8 +69,8 @@ def knn_blocked(query: torch.Tensor, base: torch.Tensor, k: int,
 def distance_matrix(a: torch.Tensor, b: torch.Tensor, metric: str = "hamming") -> torch.Tensor:
     if metric != "hamming":
         raise NotImplementedError(
-            f"the {metric!r} metric (float descriptors) is not ported yet; it comes "
-            "with the learned-front-end slice")
+            f"the {metric!r} metric (float descriptors, SIFT's) is not ported yet; it "
+            "comes with the classical-front-end slice")
     return hamming_matrix(a, b)
 
 

@@ -5,8 +5,8 @@ Port of the store and dataset tools of ``rtabmap_tpu/tools/cli.py`` (the
 reference's rtabmap-info, -reprocess, -export, -recovery,
 -detectMoreLoopClosures, -globalBundleAdjustment and -reduceGraph; the
 TUM, KITTI, EuRoC and CID-SIMS dataset tools and stereoEval; the Matcher
-tool and the learned models' weight converter), with the twin's argument
-syntax. Run as
+tool and the learned models' weight converter; ``db_edit``, the
+DatabaseViewer's edits), with the twin's argument syntax. Run as
 
     python -m rtabmap_tpu_torch.tools.cli <tool> [args...] [--device cpu]
 
@@ -649,6 +649,83 @@ def tool_convert_model(argv: List[str]):
     return 0
 
 
+def tool_db_edit(argv: List[str]):
+    """Map-store inspection and editing (the engine-facing surface of the
+    reference's DatabaseViewer), with the twin's commands:
+
+      db_edit <db> nodes                     list nodes (pose, weight, label)
+      db_edit <db> links [type]              list links (optionally one type)
+      db_edit <db> add_link <from> <to>      register and add a user closure
+      db_edit <db> remove_link <from> <to>   delete a link and re-optimize
+      db_edit <db> refine_links              refine every closure
+      db_edit <db> set_label <id> <label>
+      db_edit <db> dot <out.dot>             GraphViz export
+
+    The edits load the store without a new session and close it again
+    (persisting the edit). Unlike the twin's fixed 320x240 camera and 512
+    words a node, the engine takes the store's own camera (``__camera__``,
+    which its ``close()`` writes back) when the store has one, and the
+    stored nodes' word count. Returns the listing or the edit's result."""
+    from rtabmap_tpu_torch.engine.rtabmap import Rtabmap
+    from rtabmap_tpu_torch.geometry import camera as C
+    from rtabmap_tpu_torch.memory.db import Database
+    from rtabmap_tpu_torch.utils.logging import Statistics
+    from rtabmap_tpu_torch.utils.params import Parameters
+
+    dev, argv = _device(argv, resolve=False)
+    params, rest = Parameters.parse_arguments(argv)
+    path, cmd = rest[0], rest[1]
+    db = Database(path)
+    if cmd in ("nodes", "links"):
+        if cmd == "nodes":
+            out = []
+            for sid in db.all_node_ids():
+                s = db.load_signature(sid)
+                if s is None:
+                    continue
+                p = np.asarray(s.pose)[:, 3]
+                out.append({"id": sid, "map": s.map_id, "weight": s.weight, "label": s.label,
+                            "xyz": [round(float(v), 3) for v in p]})
+        else:
+            links = db.all_links()
+            if len(rest) > 2:
+                links = [lk for lk in links if lk.type == int(rest[2])]
+            out = [{"from": lk.from_id, "to": lk.to_id, "type": lk.type} for lk in links]
+        print(json.dumps(out, indent=1))
+        db.close()
+        return out
+
+    cam = C.CameraModel.make(*(db.load_admin()["parameters"].get("__camera__")
+                               or _FIXED_CAMERA))
+    first = next((s for s in map(db.load_signature, db.all_node_ids())
+                  if s is not None and s.word_ids is not None), None)
+    slam = Rtabmap.load(db, cam, params, new_session=False, device=dev,
+                        words_per_frame=len(first.word_ids) if first is not None else 512)
+    if cmd == "add_link":
+        result = slam.add_user_link(int(rest[2]), int(rest[3]))
+        print(f"add_link: {'accepted' if result else 'rejected'}")
+    elif cmd == "remove_link":
+        slam.memory.remove_link(int(rest[2]), int(rest[3]))
+        slam._optimize(Statistics(), [])
+        result = True
+        print("removed")
+    elif cmd == "refine_links":
+        result = slam.refine_links()
+        print(f"refined {result} links")
+    elif cmd == "set_label":
+        result = slam.set_label(int(rest[2]), rest[3])
+        print(f"set_label: {result}")
+    elif cmd == "dot":
+        result = slam.generate_dot_graph(rest[2])
+        print(f"wrote {result} edges -> {rest[2]}")
+    else:
+        db.close()
+        raise SystemExit(f"unknown db_edit command {cmd}")
+    slam.close()
+    db.close()
+    return result
+
+
 def _later(name: str, slice_: str):
     def tool(argv: List[str]):
         raise NotImplementedError(f"the {name} tool is not ported yet; it comes with {slice_}")
@@ -671,7 +748,6 @@ _LATER = {
     "lidar_mapping": "the tools slice (python -m rtabmap_tpu_torch.tools.lidar_mapping runs it)",
     "wifi_mapping": "the tools slice",
     "fleet_demo": "the parallel slice",
-    "db_edit": "the tools slice",
 }
 
 TOOLS = {
@@ -691,6 +767,7 @@ TOOLS = {
     "stereo_eval": tool_stereo_eval,
     "matcher": tool_matcher,
     "convert_model": tool_convert_model,
+    "db_edit": tool_db_edit,
 }
 
 

@@ -18,8 +18,10 @@ float descriptors (``descf``, for ``Vis/CorNNType`` 6). With a map store
 (``db``) each frame's raw image and depth go to ``process`` for the store.
 ``slam`` continues an engine the caller made (e.g. ``Rtabmap.load`` of a
 store, for a resumed or a localization session) with a new odometry.
-Profile traces raise ``NotImplementedError`` naming the slice that brings
-them.
+With ``Tpu/ProfileDir`` set the run is traced (``utils/logging.profile_trace``:
+``torch.profiler``, each frame a ``slam_tick#i`` range) into that
+directory, and the output's ``trace`` gives the file and the device's busy
+share of the traced wall time.
 """
 from __future__ import annotations
 
@@ -34,10 +36,6 @@ from rtabmap_tpu_torch.device import DeviceLike, resolve_device
 # IMU samples integrated per frame at most (the twin pads each frame's batch
 # to this static length)
 IMU_PAD = 64
-
-
-def _later(what: str, slice_: str):
-    return NotImplementedError(f"{what} is not ported yet; it comes with {slice_}")
 
 
 def extract_stereo_learned(fe, gray, right, stereo_model):
@@ -79,13 +77,12 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
     from rtabmap_tpu_torch.ops import features as F
     from rtabmap_tpu_torch.ops.stereo import keypoints_3d_from_stereo
     from rtabmap_tpu_torch.utils import metrics
+    from rtabmap_tpu_torch.utils.logging import profile_trace
     from rtabmap_tpu_torch.utils.params import Parameters
 
     dev = resolve_device(device)
     p = params or Parameters()
-    if str(p["Tpu/ProfileDir"]):
-        raise _later("Tpu/ProfileDir traces",
-                     "a later slice; use tools/rgbd_laps.py --profile")
+    trace = profile_trace(str(p["Tpu/ProfileDir"]))
     odom = OdometryF2M(camera, p, seed=seed, device=dev)
     if slam is None:
         slam = Rtabmap(camera, p, db=db, node_capacity=node_capacity,
@@ -112,10 +109,10 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
     n_loops = n_lost = 0
     prev_wheel = None   # external odometry (CidSimsDataset --odom fallback)
     imu_q = prev_imu_t = None
-    t0 = time.time()
-    for i, fr in enumerate(frames):
-        if max_frames and i >= max_frames:
-            break
+
+    def tick(i, fr):
+        # one frame: features, IMU, odometry, then the engine
+        nonlocal n_loops, n_lost, prev_wheel, imu_q, prev_imu_t
         _t = time.perf_counter()
         stereo_used = False
         descf = None
@@ -202,6 +199,14 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
                   f"wm={int(st.get('Memory/Working memory size/'))} "
                   f"({(i+1)/(time.time()-t0):.1f} fps)")
 
+    t0 = time.time()
+    with trace:
+        for i, fr in enumerate(frames):
+            if max_frames and i >= max_frames:
+                break
+            with trace.step(i):
+                tick(i, fr)
+
     elapsed = time.time() - t0
     opt = slam.get_optimized_poses()
     ids = sorted(opt)
@@ -211,6 +216,11 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
            "est_odom": np.stack(est_odom) if est_odom else np.zeros((0, 3, 4)),
            "est_slam": est_slam, "stamps": est_stamps, "slam": slam, "odom": odom,
            "imu_quat": imu_quats, "tracked": tracked, **times}
+    if trace.dir:
+        out["trace"] = {"path": trace.path, "wall_ms": trace.wall_us / 1e3,
+                        "device_busy_ms": trace.busy_us / 1e3,
+                        "device_busy_share": trace.busy_share,
+                        "device_ops": trace.device_ops}
     have_gt = [k for k, g in enumerate(gt_poses) if g is not None]
     if len(have_gt) >= 5:
         gt = np.stack([gt_poses[k] for k in have_gt])
@@ -227,5 +237,8 @@ def run_dataset(frames: Iterable, camera, params=None, stereo_model=None,
                f"{n_loops} loops, {n_lost} lost")
         if "ate_slam" in out:
             msg += f", ATE slam={out['ate_slam']:.4f} odom={out['ate_odom']:.4f}"
+        if trace.dir:
+            msg += (f"; trace {trace.path}, device busy share "
+                    f"{trace.busy_share:.4f} of {trace.wall_us / 1e3:.1f} ms")
         print(msg)
     return out

@@ -32,11 +32,14 @@ package; ``chip_smoke.py`` holds the port's runs on the card to it.
 
 Usage: python -m rtabmap_tpu_torch.tools.rgbd_laps [--device cpu]
        [--sequence parity|full|full-default-room|full-revisit] [--frames N]
-       [--seed S] [--learned] [--gt-odometry] [--profile N]
+       [--seed S] [--learned] [--gt-odometry] [--profile N] [--trace-dir DIR]
 
 ``--profile N`` traces the last N frames with ``torch.profiler`` and
 prints the device's busy share, device operations a frame and the top
-device operations.
+device operations. ``--trace-dir DIR`` traces the whole run the way the
+dataset tools do (``Tpu/ProfileDir``: ``run_dataset`` writes the trace
+into DIR) and adds the trace's file and busy share to the summary; it
+goes with neither ``--gt-odometry`` nor ``--profile``.
 """
 from __future__ import annotations
 
@@ -177,9 +180,9 @@ def closure_errors(slam) -> np.ndarray:
 
 
 def summary(run: Dict, poses: np.ndarray) -> Dict:
-    """Loop and proximity counts, lost frames, odometry and SLAM ATE (each
-    frame read at its node's optimized pose; frames whose node left the
-    graph are left out, and counted), the closure links' errors against
+    """Loop and proximity counts, lost frames, odometry (None under five
+    frames) and SLAM ATE (each frame read at its node's optimized pose;
+    frames whose node left the graph are left out, and counted), the closure links' errors against
     the ground truth, WM size and per-frame host times."""
     slam = run["slam"]
     hist = slam.stats_history
@@ -193,7 +196,7 @@ def summary(run: Dict, poses: np.ndarray) -> Dict:
     mem = slam.memory
     return {**extra, "frames": run["frames"], "loops": run["loops"],
             "proximity": int(sum(s.get("Proximity/Space links added/") for s in hist)),
-            "lost": run["lost"], "ate_odom": run["ate_odom"],
+            "lost": run["lost"], "ate_odom": run.get("ate_odom"),
             "ate_slam": metrics.ate_rmse(est, poses[have]), "ate_slam_frames": len(have),
             "closure_links": int(cerr.size),
             "closure_err_max_m": float(cerr.max()) if cerr.size else 0.0,
@@ -220,7 +223,15 @@ def main(argv=None):
                     help="ground-truth poses into Rtabmap.process, no odometry")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace the last N frames")
+    ap.add_argument("--trace-dir", default="", metavar="DIR",
+                    help="trace the whole run into DIR (Tpu/ProfileDir; not with "
+                         "--gt-odometry or --profile)")
     args = ap.parse_args(argv)
+    params = Parameters(LEARNED if args.learned else {})
+    if args.trace_dir and (args.gt_odometry or args.profile):
+        ap.error("--trace-dir traces run_dataset's run: not with --gt-odometry or --profile")
+    if args.trace_dir:
+        params.set("Tpu/ProfileDir", args.trace_dir)
     prof, window = None, {}
     n_total = args.frames or len(sequence_spec(args.sequence)["poses"])
     n = min(args.profile, n_total)
@@ -234,7 +245,7 @@ def main(argv=None):
                 prof.__enter__()  # the profiler's own start-up stays out of the window
                 window["t0"] = time.perf_counter()
     out = run_sequence(args.sequence, args.device, args.frames,
-                       params=Parameters(LEARNED) if args.learned else None,
+                       params=params,
                        on_frame=start if prof else None, seed=args.seed,
                        gt_odometry=args.gt_odometry)
     if prof is not None:
@@ -249,7 +260,9 @@ def main(argv=None):
             "device_busy_share": busy_us / wall_us,
             "device_ops_per_frame": n_device_ops / n,
             "top_device_ops_ms": {e.key: e.self_device_time_total / 1e3 for e in top}}
-    out.pop("run")
+    run = out.pop("run")
+    if "trace" in run:
+        out["trace"] = run["trace"]
     print(json.dumps(out))
 
 

@@ -1,18 +1,60 @@
 """Pose-graph host utilities: nearest nodes, radius and frustum filtering.
 
 Port of ``rtabmap_tpu/utils/graph.py`` (the reference's ``graph``
-namespace, Graph.cpp): ``links_to_adjacency``, ``find_nearest_nodes``,
+namespace, Graph.cpp): ``compute_path`` (A* over the link topology),
+``links_to_adjacency``, ``find_nearest_nodes``,
 ``radius_poses_filtering``, ``frustum_poses_filtering``,
 ``radius_poses_clustering``, ``connected_component`` and ``PoseStore``,
 the optimized-pose map with a compact position array for radius queries.
 Host-side numpy, as in the twin (graph bookkeeping is control-plane).
-``compute_path`` comes with the planner.
 """
 from __future__ import annotations
 
+import heapq
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+
+def compute_path(poses: Dict[int, np.ndarray], links: Dict[int, Dict[int, float]],
+                 start: int, goal: int, updated_costs: bool = True) -> List[int]:
+    """A* over ``links`` ({id: {neighbour: length}}) from ``start`` to
+    ``goal``, with the Euclidean distance to the goal as the heuristic
+    where both poses are known (else Dijkstra); the heap holds
+    ``(cost, id)`` so equal costs pop the lower id first. Returns the node
+    ids of the path, [] when the goal is unreachable (graph::computePath).
+    ``updated_costs`` is accepted for the twin's signature and unused."""
+    if start == goal:
+        return [start]
+
+    def h(n):
+        if n in poses and goal in poses:
+            return float(np.linalg.norm(poses[n][:3, 3] - poses[goal][:3, 3]))
+        return 0.0
+
+    dist = {start: 0.0}
+    prev: Dict[int, int] = {}
+    pq = [(h(start), start)]
+    seen = set()
+    while pq:
+        _, u = heapq.heappop(pq)
+        if u in seen:
+            continue
+        if u == goal:
+            break
+        seen.add(u)
+        for v, w in links.get(u, {}).items():
+            nd = dist[u] + w
+            if v not in dist or nd < dist[v]:
+                dist[v] = nd
+                prev[v] = u
+                heapq.heappush(pq, (nd + h(v), v))
+    if goal not in prev:
+        return []
+    path = [goal]
+    while path[-1] != start:
+        path.append(prev[path[-1]])
+    return path[::-1]
 
 
 def links_to_adjacency(signatures) -> Dict[int, Dict[int, float]]:

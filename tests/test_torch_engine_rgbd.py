@@ -119,6 +119,11 @@ def test_default_parameters_construct_and_refuse_what_is_not_ported():
                                     "Tpu/VocabularyCapacity": 1024}),
                    node_capacity=16, words_per_frame=8,
                    device="cpu").create_intermediate_nodes
+    # the planner, labels and map edits are ported (tests/test_torch_planner.py,
+    # tests/test_torch_map_edits.py):
+    # with no node there is no path
+    assert slam.compute_path(1) == [] and not slam.set_goal(1) and slam.path_status == -1
+    assert not slam.set_label(1, "dock") and not slam.delete_last_location()
     # what stays refused: landmarks; learned float descriptors are ported
     # (tests/test_torch_engine_learned.py) and kept with Vis/CorNNType 6 only
     with pytest.raises(NotImplementedError, match="landmarks"):

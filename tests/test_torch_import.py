@@ -34,7 +34,8 @@ new = {"rtabmap_tpu_torch.ops.epipolar", "rtabmap_tpu_torch.core.laser_scan",
        "rtabmap_tpu_torch.datasets.layouts", "rtabmap_tpu_torch.tools.stereo_datasets",
        "rtabmap_tpu_torch.models", "rtabmap_tpu_torch.models.superpoint",
        "rtabmap_tpu_torch.models.superglue", "rtabmap_tpu_torch.models.superglue_official",
-       "rtabmap_tpu_torch.models.netvlad", "rtabmap_tpu_torch.models.convert"}
+       "rtabmap_tpu_torch.models.netvlad", "rtabmap_tpu_torch.models.convert",
+       "rtabmap_tpu_torch.tools.navigation", "rtabmap_tpu_torch.optim"}
 assert new <= set(names), sorted(new - set(names))
 # the readers decode PNG and read sensor.yaml themselves (tools/bow_mapping.py
 # imports PIL only when it reads the JPEG samples)
@@ -91,6 +92,7 @@ def test_entry_points_without_a_card_raise():
     from rtabmap_tpu_torch.maps.tsdf import TSDFVolume
     from rtabmap_tpu_torch.memory.db_reader import DBReader, database_recovery
     from rtabmap_tpu_torch.tools import cli
+    from rtabmap_tpu_torch.tools.navigation import navigate
 
     from rtabmap_tpu_torch.models import superglue_official
     from rtabmap_tpu_torch.models.netvlad import GlobalDescriptorIndex, NetVLAD
@@ -125,6 +127,8 @@ def test_entry_points_without_a_card_raise():
                  lambda: DBReader(db),
                  lambda: database_recovery(":memory:", ":memory:"),
                  lambda: cli.main(["reprocess", ":memory:"]),
+                 lambda: cli.main(["db_edit", ":memory:", "set_label", "1", "dock"]),
+                 lambda: navigate(":memory:"),
                  lambda: cli.main(["detect_more_loop_closures", ":memory:"]),
                  lambda: cli.main(["global_ba", ":memory:"]),
                  lambda: cli.main(["recovery", ":memory:", ":memory:"]),
@@ -161,14 +165,15 @@ def test_unported_paths_raise_not_implemented():
                    node_capacity=16, words_per_frame=8, device="cpu")
     with pytest.raises(NotImplementedError):
         slam.process(None, np.eye(3, 4), landmarks=[object()])
-    # the store and dataset tools are ported; every other tool of the twin's
-    # CLI names the slice that brings it
+    # Tpu/ProfileDir traces run_dataset (tests/test_torch_nav_tools.py); the
+    # store and dataset tools and db_edit are ported; every other tool of
+    # the twin's CLI names the slice that brings it
     from rtabmap_tpu_torch.tools import cli
 
     ported = {"info", "reprocess", "export", "export_cloud", "recovery",
               "detect_more_loop_closures", "global_ba", "reduce_graph", "rgbd_dataset",
               "kitti_dataset", "euroc_dataset", "cid_sims_dataset", "stereo_eval",
-              "matcher", "convert_model"}
+              "matcher", "convert_model", "db_edit"}
     assert ported < set(cli.TOOLS) and len(cli.TOOLS) == 30
     for name in sorted(set(cli.TOOLS) - ported):
         with pytest.raises(NotImplementedError, match="slice"):
