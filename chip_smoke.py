@@ -178,6 +178,20 @@ Phases — any failure ends the run with a non-zero exit code:
    ``delete_last_location`` persisted and ``reset_memory`` on a further
    copy, and a traced 2-frame run of the RGB-D parity sequence through
    ``run_dataset`` (``Tpu/ProfileDir``) with its device busy share.
+13. slice ``classical``: the classical front ends and the other visual
+   odometries. Card against CPU on the same inputs: the four response
+   maps (GFTT, Harris, DoG, FAST) and the SIFT descriptors of a 640x480
+   frame, their sign-LSH words, ``gms_filter`` and a ``Vis/CorNNType`` 7
+   registration, and F2F and mono over 6 frames; the PnP-RANSAC's CUDA
+   graph against its eager ops (equal); each strategy's extraction time. Then, through ``run_dataset``, ``Kp/DetectorStrategy``
+   2 (ORB) at the full width (two 60-frame laps at 640x480), 1 (SIFT ->
+   sign-LSH words) and 2 with ``Vis/CorNNType`` 7 (GMS) on the parity
+   sequence, and, through ``tools/odometries.py``, F2F (``Odom/Strategy``
+   1) over the full width's first lap and mono over
+   ``tests/test_odometry_mono.py``'s strafe at 640x480; each held to the
+   JAX package's CPU runs of the same frames (``scripts/jax_rgbd_laps.py
+   --strategy``, ``scripts/jax_odometries.py``, seeds 0-3); K1 launches
+   once a quantize call and is timed at the ORB run's end state.
 
 Each slice zeroes the launch counts of its kernels right before each run
 and reads them right after; they must equal the calls the run made (K1:
@@ -891,11 +905,12 @@ def run_lidar_slices() -> tuple:
     return full["nn3d_launches"], full["nn3d_compact_launches"]
 
 
-def run_rgbd(name: str, run_fn=None) -> dict:
+def run_rgbd(name: str, run_fn=None, slice_name: str = "rgbd_mapping") -> dict:
     """One RGB-D SLAM run on the card (``run_fn``, by default
     tools/rgbd_laps.py's sequence ``name``, returning its summary); checks
     that the state lies on the card, that K1 launched once per quantize
-    call and that every statistic is finite."""
+    call and that every statistic is finite. The summary keeps the raw
+    run's engine under ``"slam"``."""
     K1.knn2.launches = 0
     out = run_fn() if run_fn else rgbd_laps.run_sequence(name, torch.device("cuda"))
     launches = K1.knn2.launches
@@ -919,9 +934,10 @@ def run_rgbd(name: str, run_fn=None) -> dict:
     poses = np.stack(list(slam.get_optimized_poses().values()))
     if not (np.isfinite(poses).all() and np.isfinite(out["ate_slam"])):
         fail(f"{name}: non-finite poses or ATE")
-    res = {"slice": "rgbd_mapping", "sequence": name, "vocab_knn2_launches": launches,
+    res = {"slice": slice_name, "sequence": name, "vocab_knn2_launches": launches,
            **out}
     print(json.dumps(res), flush=True)
+    res["slam"] = slam
     return res
 
 
@@ -1755,6 +1771,283 @@ def run_learned_slice() -> int:
     return total
 
 
+# ---------------------------------------------------------------- classical
+
+# The classical front ends and the other visual odometries against the JAX
+# package's CPU runs of the same frames, seeds 0-3 (the RANSAC draws differ
+# between the packages and between seeds):
+# PYTHONPATH=. python scripts/jax_rgbd_laps.py --strategy 2 --sequence full --seed S,
+# ... --strategy 1 --sequence parity --seed S,
+# ... --strategy 2 --cor-nn-type 7 --sequence parity --seed S and
+# PYTHONPATH=. python scripts/jax_odometries.py --seed S:
+# - full-orb (Kp/DetectorStrategy 2, ORB = FAST + rotated BRIEF, two laps
+#   at 640x480): 59, 52, 52, 60 loops, 0 lost, SLAM ATE 0.02455, 0.02097,
+#   0.03213, 0.01740 m (odometry 0.0304-0.0407 m);
+# - parity-sift (1, DoG + SIFT -> sign-LSH words): 10, 8, 6, 6 loops, 0
+#   lost, SLAM ATE 0.03851, 0.02205, 0.05979, 0.04141 m;
+# - parity-orb-gms (2 with Vis/CorNNType 7): FAST keeps about 30 of 384
+#   keypoints a frame at 320x240 and F2M loses 57 of 58 frames at every
+#   seed (0 loops, SLAM ATE 0.5484 m over the 10 optimized poses): the
+#   twin's behaviour, which the port keeps (ROADMAP.md section 3);
+# - f2f (Odom/Strategy 1 over full's first lap): 0 lost, odometry ATE
+#   0.01936, 0.01734, 0.01654, 0.02194 m;
+# - mono (the strafe at 640x480): initialised at frame 1, 0 lost, Sim(3)
+#   RMSE 0.556%, 0.559%, 0.539%, 0.539% of the trajectory's span.
+# The card must reach 90% of the lowest loops and lose no more frames than
+# the highest; full width: the SLAM ATE at most RGBD_ATE_BOUND and 1.1 x
+# the run's own odometry ATE; parity width: at most the JAX highest +
+# CLASSICAL_ATE_MARGIN; F2F's odometry ATE at most the JAX highest +
+# CLASSICAL_ATE_MARGIN; mono initialised no later than the JAX latest
+# frame, its RMSE at most the JAX highest share of the span +
+# MONO_SHARE_MARGIN.
+JAX_CLASSICAL = {
+    "full-orb": {"loops_min": 52, "lost_max": 0},
+    "parity-sift": {"loops_min": 6, "lost_max": 0, "ate_max": 0.05979386788977717},
+    "parity-orb-gms": {"loops_min": 0, "lost_max": 57, "ate_max": 0.5483569469033548},
+    "f2f": {"lost_max": 0, "ate_max": 0.021938856437859446},
+    "mono": {"init_max": 1, "lost_max": 0, "share_max": 0.005585718212408894},
+}
+CLASSICAL_ATE_MARGIN, MONO_SHARE_MARGIN = 0.02, 0.01
+# Card against CPU on the same inputs: each response map within 1e-5 of its
+# largest magnitude and the SIFT descriptors within 1e-5 (unit norm): sums
+# in another order; an LSH bit may differ only where |x.R| < LSH_EPS (the
+# two products round differently near 0); the GMS masks exactly (whole-
+# number counts); F2F poses and the GMS registration within 1e-4 on the
+# same features and the same RANSAC draws (float32 sums in another order);
+# mono poses within 5e-3: the bootstrap (after one frame: 640x480 passes
+# OdomMono/InitMinFlow's 8 px at once) takes the homography, whose
+# decomposition of a near-rotation amplifies the last-bit differences of
+# the two devices' float32 SVDs, and the map inherits it (the card read
+# 7.1e-4 at the bootstrap and 1.75e-3 at most over 8 frames; the port's
+# CPU against the JAX twin reads 2.6e-4 on 160x120 frames for the same
+# reason, tests/test_torch_odometry_mono.py).
+CL_RESP_TOL, CL_SIFT_TOL, LSH_EPS, CL_POSE_TOL = 1e-5, 1e-5, 1e-5, 1e-4
+CL_MONO_POSE_TOL = 5e-3
+CL_ODOM_FRAMES = 6   # frames of each odometry run held card against CPU
+# Kp/DetectorStrategy of the runs: 6 GFTT/BRIEF (the default), 2 ORB (FAST +
+# rotated BRIEF), 0 SURF (DoG + BRIEF), 1 SIFT (DoG + SIFT -> sign-LSH words)
+CL_EXTRACT_STRATEGIES = (6, 2, 0, 1)
+
+
+def _odometry_same_inputs(name: str, feats_cuda: list, cam) -> float:
+    """One odometry (``f2f`` or ``mono``) over the same features on the
+    CPU and on the card, seed 0 on both: the RANSAC samples come from a CPU
+    generator on either device and map onto the match flags, which are
+    exact (integer Hamming distances), so both runs draw the same samples.
+    Returns the largest pose difference."""
+    from rtabmap_tpu_torch.odometry import create_odometry
+    from rtabmap_tpu_torch.tools.odometries import MONO_PARAMS
+
+    params = Parameters({"Odom/Strategy": 1} if name == "f2f" else MONO_PARAMS)
+    strategy = None if name == "f2f" else "mono"
+    cpu = create_odometry(cam, params, strategy=strategy, device="cpu")
+    card = create_odometry(cam, params, strategy=strategy, device="cuda")
+    diffs = []
+    for i, f in enumerate(feats_cuda):
+        pc, _, _ = cpu.process(type(f)(*(t.cpu() for t in f)))
+        pd, _, _ = card.process(f)
+        if (pc is None) != (pd is None):
+            fail(f"classical {name}: frame {i} tracked on one device only")
+        if pc is not None:
+            diffs.append(float((pd.cpu() - pc).abs().max()))
+    tol = CL_POSE_TOL if name == "f2f" else CL_MONO_POSE_TOL
+    if len(diffs) < 3 or max(diffs) > tol:
+        fail(f"classical {name}: card and CPU poses differ by {diffs} (tolerance {tol})")
+    return diffs
+
+
+def _gms_registration_same_inputs(fa, fb, cam) -> dict:
+    """``Memory.compute_transform`` with ``Vis/CorNNType`` 7 between two
+    frames' features (GFTT/BRIEF at 640x480, three frames apart: the GMS
+    filter has its 30 mutual matches and drops some) on the card and on
+    the CPU, the same generator seed: the same mutual and GMS masks (exact),
+    so the same draws; inliers equal, transforms within CL_POSE_TOL."""
+    from rtabmap_tpu_torch.memory import memory as MEM
+
+    out = []
+    for dev in ("cpu", "cuda"):
+        mem = MEM.Memory(Parameters({"Vis/CorNNType": 7, "Tpu/VocabularyCapacity": 1024}),
+                         node_capacity=8, words_per_frame=512, device=dev)
+        for i, f in enumerate((fa, fb)):
+            mem.signatures[i + 1] = MEM.Signature(
+                id=i + 1, map_id=0, stamp=float(i), pose=np.eye(3, 4, dtype=np.float32),
+                desc=f.desc.cpu().numpy(), uv=f.uv.cpu().numpy(), pts3d=f.pts3d.cpu().numpy(),
+                valid3d=(f.valid3d & f.valid).cpu().numpy())
+        t, _, inl = mem.compute_transform(1, 2, cam, torch.Generator().manual_seed(0))
+        out.append((t, inl, dict(mem.last_registration)))
+    (tc, ic, rc), (td, id_, rd) = out
+    if tc is None or td is None or ic != id_ or rc["matches"] != rd["matches"]:
+        fail(f"classical: GMS registration card {id_} inliers / {rd['matches']} matches, "
+             f"CPU {ic} / {rc['matches']}")
+    diff = float(np.abs(np.asarray(td) - np.asarray(tc)).max())
+    if diff > CL_POSE_TOL:
+        fail(f"classical: GMS registration transforms differ by {diff}")
+    return {"inliers": ic, "matches": rc["matches"], "transform_max_diff": diff}
+
+
+def _pnp_graph_same_as_eager(fa, fb, cam) -> dict:
+    """The odometry's PnP-RANSAC (B's pixels against A's 3D, B's own 3D as
+    the query, a guess in the pool) through its captured CUDA graph, twice
+    (capture, then a replay), and eagerly, on the same inputs and draws:
+    every output equal. Returns both times (one call each)."""
+    from rtabmap_tpu_torch.ops import matching as MT
+    from rtabmap_tpu_torch.ops import ransac as RS
+
+    m = MT.match_nndr(fb.desc, fb.valid, fa.desc, fa.valid & fa.valid3d)
+    pts = fa.pts3d[m.idx.long()]
+    query = torch.where(fb.valid3d[:, None], fb.pts3d, 0.0)
+    idx = RS.pnp_sample_indices(torch.Generator().manual_seed(0), m.valid, 256, True)
+    guess = torch.eye(3, 4, device=pts.device)
+
+    def pnp(graphs):
+        return RS.ransac_pnp(pts, fb.uv, m.valid, cam, guess=guess, pts3d_query=query,
+                             indices=idx, graphs=graphs)
+
+    outs = [pnp(True), pnp(True), pnp(False)]
+    for out in outs[:2]:
+        if not all(torch.equal(a, b) for a, b in zip(out, outs[2])):
+            fail("classical: the PnP-RANSAC's CUDA graph and its eager ops disagree")
+    return {"equal": True, "inliers": int(outs[2].num_inliers),
+            "graph_ms": time_ms(lambda: pnp(True), reps=10),
+            "eager_ms": time_ms(lambda: pnp(False), reps=10)}
+
+
+def classical_same_inputs() -> dict:
+    """(f) The classical front end and the odometries on the card held to
+    the CPU on the same inputs, and each strategy's extraction time at
+    640x480."""
+    from rtabmap_tpu_torch.core import frame as FR
+    from rtabmap_tpu_torch.ops import features as FT
+    from rtabmap_tpu_torch.ops import image as IM
+    from rtabmap_tpu_torch.ops import matching as MT
+    from rtabmap_tpu_torch.tools import odometries as OD
+
+    dev = torch.device("cuda")
+    spec = OD.run_spec("f2f")
+    W, H = spec["size"]
+    cam = CAMERA.CameraModel.make(spec["f"], spec["f"], spec["c"][0], spec["c"][1], W, H)
+    grays, depths = SYN.render_sequence(spec["poses"][:CL_ODOM_FRAMES], cam,
+                                        SYN.World(spec["world"], 0), device=dev)
+    g = grays[0]
+    res = {"slice": "classical", "check": "same_inputs"}
+    for name in ("gftt", "harris", "dog", "fast"):
+        rc = FT.RESPONSE_FNS[name](g).cpu()
+        rp = FT.RESPONSE_FNS[name](g.cpu())
+        err = float((rc - rp).abs().max() / rp.abs().max())
+        res[f"{name}_response_rel_err"] = err
+        if not err <= CL_RESP_TOL:
+            fail(f"classical: {name} response card/CPU relative error {err}")
+    kps, _ = FT.detect_and_describe(g, 512, detector="dog", descriptor="brief")
+    blur = IM.gaussian_blur(g, sigma=2.0, radius=4)
+    dc = FT.describe_sift(blur, kps)
+    dp = FT.describe_sift(blur.cpu(), FT.Keypoints(*(t.cpu() for t in kps)))
+    res["sift_max_abs_err"] = float((dc.cpu() - dp).abs().max())
+    if not res["sift_max_abs_err"] <= CL_SIFT_TOL:
+        fail(f"classical: SIFT descriptors card/CPU differ by {res['sift_max_abs_err']}")
+    bc, bp = FR.lsh_binarize(dc, kps.valid).cpu(), FR.lsh_binarize(dc.cpu(), kps.valid.cpu())
+    x = dc.cpu() / torch.clamp(torch.linalg.norm(dc.cpu(), dim=-1, keepdim=True), min=1e-8)
+    proj = (x @ FR.lsh_planes("cpu")).abs()
+    flips = bc != bp
+    res["lsh_flips"] = int(flips.sum())
+    if flips.any() and float(proj[flips].max()) >= LSH_EPS:
+        fail(f"classical: an LSH bit flipped at |x.R| = {float(proj[flips].max())}")
+    rng = np.random.default_rng(0)
+    uv_a = rng.uniform([10, 10], [W - 10, H - 10], (400, 2)).astype(np.float32)
+    uv_b = uv_a + np.array([8.0, -3.0], np.float32)
+    uv_b[300:] = rng.uniform([10, 10], [W - 10, H - 10], (100, 2))
+    ok = torch.from_numpy(rng.random(400) < 0.95)
+    a, b = torch.from_numpy(uv_a), torch.from_numpy(uv_b)
+    kc = MT.gms_filter(a.to(dev), b.to(dev), ok.to(dev), (H, W), (H, W)).cpu()
+    kp = MT.gms_filter(a, b, ok, (H, W), (H, W))
+    if not torch.equal(kc, kp) or not kp.any():
+        fail("classical: GMS masks differ between card and CPU")
+    res["gms_kept"] = int(kp.sum())
+    fe = FeatureExtractor(cam, None, max_kp=512, device=dev)
+    feats = [fe.extract(grays[i], depths[i])[0] for i in range(CL_ODOM_FRAMES)]
+    res["pnp_graph"] = _pnp_graph_same_as_eager(feats[0], feats[3], cam)
+    res["gms_registration"] = _gms_registration_same_inputs(feats[0], feats[3], cam)
+    res["f2f_pose_diffs"] = _odometry_same_inputs("f2f", feats, cam)
+    mspec = OD.run_spec("mono")
+    mcam = CAMERA.CameraModel.make(mspec["f"], mspec["f"], mspec["c"][0], mspec["c"][1], W, H)
+    mgrays, _ = SYN.render_sequence(mspec["poses"][:CL_ODOM_FRAMES], mcam,
+                                    SYN.World(mspec["world"], 0), device=dev)
+    mfe = FeatureExtractor(mcam, None, max_kp=512, device=dev)
+    mfeats = [mfe.extract(mgrays[i])[0] for i in range(CL_ODOM_FRAMES)]
+    res["mono_pose_diffs"] = _odometry_same_inputs("mono", mfeats, mcam)
+    # each strategy's extraction of one 640x480 frame (RGB-D), eager
+    for strategy in CL_EXTRACT_STRATEGIES:
+        ex = FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": strategy}), max_kp=512,
+                              device=dev)
+        res[f"extract_ms_strategy_{strategy}"] = time_ms(lambda: ex.extract(g, depths[0]),
+                                                         reps=10)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def classical_rgbd(label: str, sequence: str, strategy: int, cor_nn_type=None) -> dict:
+    """One rgbd_laps run through run_dataset with a classical front end;
+    run_rgbd's checks plus the strategy and correspondence mode kept."""
+    params = rgbd_laps.front_end_params(strategy=strategy, cor_nn_type=cor_nn_type)
+    out = run_rgbd(label, lambda: rgbd_laps.run_sequence(sequence, torch.device("cuda"),
+                                                         params=params), "classical")
+    slam = out["slam"]
+    if cor_nn_type is not None and slam.memory.cor_nn_type != cor_nn_type:
+        fail(f"classical {label}: Vis/CorNNType {slam.memory.cor_nn_type}")
+    if int(slam.params["Kp/DetectorStrategy"]) != strategy:
+        fail(f"classical {label}: Kp/DetectorStrategy {slam.params['Kp/DetectorStrategy']}")
+    return out
+
+
+def _hold_rgbd(label: str, out: dict, full: bool):
+    ref = JAX_CLASSICAL[label]
+    if out["loops"] < int(0.9 * ref["loops_min"]) or out["lost"] > ref["lost_max"]:
+        fail(f"classical {label}: {out['loops']} loops, {out['lost']} lost (JAX CPU lowest "
+             f"{ref['loops_min']} loops, highest {ref['lost_max']} lost)")
+    bound = (min(RGBD_ATE_BOUND, 1.1 * out["ate_odom"]) if full
+             else ref["ate_max"] + CLASSICAL_ATE_MARGIN)
+    if not out["ate_slam"] <= bound:
+        fail(f"classical {label}: SLAM ATE {out['ate_slam']} m, bound {bound} m")
+
+
+def run_classical_slice() -> tuple:
+    """The classical front ends and the other odometries: (f) card against
+    CPU; (a) ORB at full width through run_dataset, K1 timed at its end
+    state; (b) SIFT words and (c) ORB with GMS on the parity sequence; (d)
+    F2F over the full sequence's first lap; (e) mono over the strafe.
+    Returns (K1's launches in the phase, K1's end-state row)."""
+    from rtabmap_tpu_torch.tools import odometries as OD
+
+    classical_same_inputs()
+    total = 0
+    full = classical_rgbd("full-orb", "full", 2)
+    total += full["vocab_knn2_launches"]
+    if full["ate_slam_frames"] != full["frames"]:
+        fail(f"classical full-orb: {full['ate_slam_frames']} of {full['frames']} frames "
+             "in the graph")
+    _hold_rgbd("full-orb", full, True)
+    row = k1_at_end_state(full.pop("slam"), case="orb-full-end-state")
+    for label, sequence, strategy, cor in (("parity-sift", "parity", 1, None),
+                                           ("parity-orb-gms", "parity", 2, 7)):
+        out = classical_rgbd(label, sequence, strategy, cor)
+        total += out["vocab_knn2_launches"]
+        _hold_rgbd(label, out, False)
+    for name in ("f2f", "mono"):
+        out = OD.run_odometry(name, torch.device("cuda"))
+        out.pop("est")
+        print(json.dumps({"slice": "classical", **out}), flush=True)
+        ref = JAX_CLASSICAL[name]
+        if out["lost"] > ref["lost_max"] or "ate_odom" not in out:
+            fail(f"classical {name}: {out['lost']} lost (JAX CPU highest {ref['lost_max']})")
+        if name == "f2f" and not out["ate_odom"] <= ref["ate_max"] + CLASSICAL_ATE_MARGIN:
+            fail(f"classical f2f: odometry ATE {out['ate_odom']} m, JAX CPU highest "
+                 f"{ref['ate_max']} m")
+        if name == "mono" and (out["initialized_at"] > ref["init_max"] or not
+                               out["ate_share_of_span"] <= ref["share_max"] + MONO_SHARE_MARGIN):
+            fail(f"classical mono: initialised at frame {out['initialized_at']}, RMSE "
+                 f"{out['ate_share_of_span']} of the span (JAX CPU {ref})")
+    return total, row
+
+
 # ---------------------------------------------------------------- map tools
 
 # Same inputs on the card and the CPU (the stated tolerances): tsdf and
@@ -2434,6 +2727,8 @@ def main():
     scan_k1, scan_k2, scan_k2c = phase("rgbd_scan", run_scan_slice)
     k1["launches"] += phase("stereo", run_stereo_slice)
     k1["launches"] += phase("learned", run_learned_slice)
+    launches, _ = phase("classical", run_classical_slice)
+    k1["launches"] += launches
     k1["launches"] += scan_k1
     k2["launches"] += scan_k2
     k2c["launches"] += scan_k2c

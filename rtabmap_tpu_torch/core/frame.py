@@ -2,13 +2,14 @@
 
 Port of ``rtabmap_tpu/core/frame.py``: ``FrameFeatures`` (fixed-K struct
 of tensors, the unit of quantization), ``SensorData``, ``EnvSensor``,
-``extract_features`` and ``FeatureExtractor``: the classical GFTT/BRIEF
-path and the learned SuperPoint strategies (11, 15, 16). Classical
-strategies whose detector or descriptor is not ported yet raise
-``NotImplementedError``.
+``extract_features`` (with the sign-LSH binarisation of float
+descriptors) and ``FeatureExtractor``: every classical strategy of
+``CLASSICAL_STRATEGIES`` and the learned SuperPoint strategies (11, 15,
+16).
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -63,13 +64,41 @@ class FrameFeatures(NamedTuple):
         return self.uv.shape[0]
 
 
+# The 256 sign-LSH hyperplanes of float descriptors: the JAX twin's
+# jax.random.normal(PRNGKey(0), (128, 256)), shipped as float32 (written by
+# scripts/write_sift_lsh.py, held to a fresh draw by tests/test_torch_sift_lsh.py).
+_LSH_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sift_lsh.npy")
+_LSH_HOST = []
+_LSH_DEV = {}
+
+
+def lsh_planes(device) -> torch.Tensor:
+    """The (128, 256) float32 sign-LSH hyperplanes on ``device``."""
+    if not _LSH_HOST:
+        _LSH_HOST.append(np.load(_LSH_PATH))
+    return F._on_device(_LSH_DEV, _LSH_HOST[0], torch.device(device))
+
+
+def lsh_binarize(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(K,128) float descriptors -> (K,256) +-1 int8 sign-LSH words: the
+    rows normalised, ``x @ R >= 0``, invalid rows zeroed."""
+    x = desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-8)
+    bits = torch.where(x @ lsh_planes(desc.device) >= 0, 1, -1).to(torch.int8)
+    return torch.where(valid[:, None], bits, torch.zeros_like(bits))
+
+
 def extract_features(gray: torch.Tensor, depth: torch.Tensor, cam: C.CameraModel,
                      max_kp: int = 512, min_depth: float = 0.1,
                      max_depth: float = 20.0, use_grid: bool = True,
                      detector: str = "gftt", descriptor: str = "brief") -> FrameFeatures:
-    """Detect + describe + 3D-from-depth in one pass."""
+    """Detect + describe + 3D-from-depth in one pass. A float descriptor
+    (``descriptor="sift"``) is binarised by 256-bit sign-LSH (fixed random
+    hyperplanes on the unit sphere, cosine-preserving), so every strategy
+    feeds the same +-1 int8 Hamming vocabulary and matching."""
     kps, desc = F.detect_and_describe(gray, max_kp, use_grid=use_grid,
                                       detector=detector, descriptor=descriptor)
+    if desc.dtype != torch.int8:
+        desc = lsh_binarize(desc, kps.valid)
     pts3d, ok3d = F.keypoints_3d_from_depth(kps, depth, cam, min_depth, max_depth)
     return FrameFeatures(uv=kps.uv, desc=desc, pts3d=pts3d, valid=kps.valid,
                          valid3d=ok3d, angle=kps.angle, response=kps.response)
@@ -93,7 +122,6 @@ CLASSICAL_STRATEGIES = {
     14: ("dog", "brief"),  # SURF/DAISY
 }
 LEARNED_STRATEGIES = (11, 15, 16)  # SuperPoint / PyDetector / SP-rpautrat
-PORTED = ("gftt", "brief")
 
 
 class FeatureExtractor:
@@ -132,12 +160,7 @@ class FeatureExtractor:
                             if bool(p["SuperPoint/NMS"]) else 1)
             return
         self.detector, self.descriptor = CLASSICAL_STRATEGIES.get(
-            self.strategy, PORTED)
-        if (self.detector, self.descriptor) != PORTED:
-            raise NotImplementedError(
-                f"Kp/DetectorStrategy={self.strategy} needs the "
-                f"{self.detector}/{self.descriptor} pipeline, which comes with "
-                "a later slice; only GFTT/BRIEF strategies are ported")
+            self.strategy, ("gftt", "brief"))
 
     @property
     def learned(self) -> bool:

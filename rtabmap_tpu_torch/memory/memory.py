@@ -28,7 +28,8 @@ correspondences from the attentional matcher where both signatures kept
 their float descriptors (``descf``): the bundled ``SuperGlueMatcher`` or,
 with ``PyMatcher/Path`` (or ``set_superglue``), the official architecture;
 a missing or unreadable weights file raises (the twin falls back to NNDR).
-Later slice: the GMS (``Vis/CorNNType`` 7) correspondence mode.
+``Vis/CorNNType`` 7 filters the mutual descriptor matches by Grid Motion
+Statistics (``ops/matching.gms_filter``) before the PnP-RANSAC.
 """
 from __future__ import annotations
 
@@ -150,13 +151,10 @@ def _registration_kernel(desc_a, valid_a, pts_a, uv_a, desc_b, valid_b3d, uv_b, 
     PnP-RANSAC with Kabsch hypotheses, batched over any leading axes of
     the A side and the guess (the B side is broadcast). ``use_window``
     restricts both directions' candidates to ``window_px`` pixels around
-    A's points projected into B through the guess (B-in-A). Returns
-    (RansacResult, the mutual Matches of B -> A, (mean inlier range,
-    inlier image spread))."""
-    if use_gms:
-        raise NotImplementedError(
-            "GMS re-ranking (Vis/CorNNType=7) is not ported yet; it comes with the "
-            "ops/matching.gms_filter slice")
+    A's points projected into B through the guess (B-in-A). ``use_gms``
+    re-ranks the mutual matches by Grid Motion Statistics (Vis/CorNNType
+    7) when at least 30 exist. Returns (RansacResult, the mutual Matches
+    of B -> A, (mean inlier range, inlier image spread))."""
     lead = desc_a.shape[:-2]
     desc_b, valid_b3d, uv_b, pts_b = (t.expand(*lead, *t.shape) for t in
                                       (desc_b, valid_b3d, uv_b, pts_b))
@@ -170,7 +168,16 @@ def _registration_kernel(desc_a, valid_a, pts_a, uv_a, desc_b, valid_b3d, uv_b, 
                             guess_uv=uv_proj, uv_b=uv_b, window=window_px)
     else:
         m_ba, m_ab = M.match_nndr_bidir(desc_b, valid_bd, desc_a, valid_a, nndr=nndr)
-    mm = m_ba._replace(valid=M.cross_check(m_ba, m_ab))
+    mutual = M.cross_check(m_ba, m_ab)
+    if use_gms:
+        uv_a_m = torch.gather(uv_a.expand(*lead, *uv_a.shape[-2:]), -2,
+                              m_ba.idx.long()[..., None].expand(*m_ba.idx.shape, 2))
+        shape = (cam.height, cam.width)
+        gms_ok = M.gms_filter(uv_b, uv_a_m, mutual, shape, shape)
+        # GMS needs statistical support; below 30 matches keep NNDR's view
+        enough = (mutual.sum(-1) >= 30)[..., None]
+        mutual = torch.where(enough, mutual & gms_ok, mutual)
+    mm = m_ba._replace(valid=mutual)
     sel = torch.gather(pts_a, -2, mm.idx.long()[..., None].expand(*mm.idx.shape, 3))
     res = R.ransac_pnp(sel, uv_b, mm.valid, cam, generator, iters=iters,
                        reproj_px=reproj_px, min_inliers=min_inliers, guess=guess,

@@ -3,16 +3,17 @@
 Port of ``rtabmap_tpu/odometry/__init__.py``: the reference's
 ``Odometry::create`` switch (``Odom/Strategy`` selects F2M/F2F/Mono or one
 of the external-library wrappers), with its ``Reg/Strategy`` = 1 (ICP)
-dispatch to the scan-to-map odometry. The native ``f2m`` (visual
-frame-to-map, the default) and ``scan_f2m`` are ported; ``f2f`` and
-``mono`` raise ``NotImplementedError`` naming the slice that brings them. The external
-wrappers raise as in the JAX package.
+dispatch to the scan-to-map odometry: the native ``f2m`` (visual
+frame-to-map, the default), ``f2f`` (frame to keyframe), ``mono`` and
+``scan_f2m``. The external wrappers raise as in the JAX package.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
+from rtabmap_tpu_torch.odometry.f2f import OdometryF2F
 from rtabmap_tpu_torch.odometry.f2m import OdometryF2M
+from rtabmap_tpu_torch.odometry.mono import OdometryMono
 from rtabmap_tpu_torch.odometry.scan_f2m import OdometryScanF2M
 from rtabmap_tpu_torch.utils.params import Parameters
 
@@ -25,12 +26,6 @@ _STRATEGIES: Dict[int, str] = {
 
 _EXTERNAL = {name for i, name in _STRATEGIES.items() if i >= 2}
 
-_LATER = {
-    "f2f": "a later slice (odometry/f2f.py)",
-    "mono": "a later slice (odometry/mono.py)",
-}
-
-
 def _external_stub(name: str) -> Callable:
     def make(*a, **kw):
         raise RuntimeError(
@@ -40,17 +35,13 @@ def _external_stub(name: str) -> Callable:
     return make
 
 
-def _later_stub(name: str) -> Callable:
-    def make(*a, **kw):
-        raise NotImplementedError(
-            f"odometry strategy '{name}' is not ported yet: it comes with {_LATER[name]}")
-    return make
-
-
-_REGISTRY: Dict[str, Callable] = {name: _later_stub(name) for name in _LATER}
-_REGISTRY["f2m"] = OdometryF2M
-# the reference reaches scan/ICP odometry through OdometryF2M + Reg/Strategy=1
-_REGISTRY["scan_f2m"] = OdometryScanF2M
+_REGISTRY: Dict[str, Callable] = {
+    "f2m": OdometryF2M,
+    "f2f": OdometryF2F,
+    "mono": OdometryMono,
+    # the reference reaches scan/ICP odometry through OdometryF2M + Reg/Strategy=1
+    "scan_f2m": OdometryScanF2M,
+}
 _REGISTRY.update({n: _external_stub(n) for n in _EXTERNAL})
 
 

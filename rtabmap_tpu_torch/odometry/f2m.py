@@ -164,12 +164,19 @@ def odom_step(state: F2MState, frame: FrameFeatures, cam: C.CameraModel,
                          covariance=torch.eye(6, device=dev) * 1e-6, keyframe_added=True)
         return st._replace(initialized=True, age=state.age + 1.0), res
 
-    if search_window > 0.0:
-        raise NotImplementedError(
-            "the guess-projected map window (search_window > 0) is not ported yet; "
-            "OdometryF2M does not use it")
     guess = T.compose(state.pose, T.se3_exp(state.vel))
-    m = M.match_nndr(frame.desc, frame.valid, state.map_desc, state.map_valid, nndr=nndr)
+    map_valid = state.map_valid
+    if search_window > 0.0:
+        # the guess-projected window: map points projected through the
+        # guess, those in front and inside the image (grown by the window)
+        # are candidates, and a match must land within the window
+        uv_pred, z_pred = C.project(T.apply(T.inverse(guess), state.map_pts), cam)
+        map_valid = map_valid & (z_pred > 0.05) & C.in_image(
+            uv_pred, cam.width, cam.height, -search_window)
+    m = M.match_nndr(frame.desc, frame.valid, state.map_desc, map_valid, nndr=nndr)
+    if search_window > 0.0:
+        du = uv_pred[m.idx.long()] - frame.uv
+        m = m._replace(valid=m.valid & ((du * du).sum(-1) <= search_window ** 2))
     n_matches = m.valid.sum()
     res = R.ransac_pnp(
         state.map_pts[m.idx.long()], frame.uv, m.valid, cam, generator,

@@ -1,14 +1,15 @@
 """GFTT keypoints + rotated-BRIEF +-1 descriptors, statically shaped.
 
-Port of the GFTT/BRIEF path of ``rtabmap_tpu/ops/features.py``: the
-Shi-Tomasi response, NMS + gridded exact top-k, 3x3 subpixel refinement,
-gradient orientation, the 30-bin rotated BRIEF test set (the same numpy
-seed) and the depth lookup of keypoints. Harris, DoG, FAST and the SIFT
-descriptor wait for a later slice.
+Port of ``rtabmap_tpu/ops/features.py``: the response maps (Shi-Tomasi,
+Harris, difference of Gaussians, the dense FAST ring score, and detectors
+plugged in with ``register_detector``), NMS + gridded exact top-k, 3x3
+subpixel refinement, gradient orientation, the 30-bin rotated BRIEF test
+set (the same numpy seed), the SIFT-family gradient-histogram descriptor
+and the depth lookup of keypoints.
 
-Descriptors are 256-D sign vectors (+-1, int8) so that descriptor distance
-and vocabulary quantization are integer dot products:
-``hamming = (D - a.b) / 2``.
+Binary descriptors are 256-D sign vectors (+-1, int8) so that descriptor
+distance and vocabulary quantization are integer dot products:
+``hamming = (D - a.b) / 2``; the SIFT descriptor is (K,128) float32.
 """
 from __future__ import annotations
 
@@ -43,6 +44,63 @@ def shi_tomasi_response(gray: torch.Tensor, sigma: float = 1.5) -> torch.Tensor:
     tr = gxx + gyy
     det_term = torch.sqrt(torch.clamp((gxx - gyy) ** 2 + 4.0 * gxy * gxy, min=0.0))
     return 0.5 * (tr - det_term)
+
+
+def harris_response(gray: torch.Tensor, sigma: float = 1.5, k: float = 0.04) -> torch.Tensor:
+    """Harris corner response det(M) - k*tr(M)^2 (reference: the
+    cv::cornerHarris path of GFTT)."""
+    gx, gy = im.sobel(gray)
+    gxx = im.gaussian_blur(gx * gx, sigma)
+    gyy = im.gaussian_blur(gy * gy, sigma)
+    gxy = im.gaussian_blur(gx * gy, sigma)
+    det = gxx * gyy - gxy * gxy
+    tr = gxx + gyy
+    return det - k * tr * tr
+
+
+def dog_response(gray: torch.Tensor, sigma1: float = 1.0, sigma2: float = 1.6) -> torch.Tensor:
+    """|difference of Gaussians| blob response (the SIFT/KAZE-family
+    detector at the base octave)."""
+    g1 = im.gaussian_blur(gray, sigma1)
+    g2 = im.gaussian_blur(gray, sigma2, radius=4)
+    return torch.abs(g1 - g2)
+
+
+# FAST's 16-pixel Bresenham ring of radius 3, as (dx, dy)
+_FAST_RING = (
+    (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
+    (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
+)
+
+
+def fast_response(gray: torch.Tensor, ring_r: int = 3) -> torch.Tensor:
+    """FAST-like corner score over (...,H,W): the sum over the 16 ring
+    pixels of how far each differs from the centre beyond a 0.04 margin
+    (the image zero-padded by 3), computed densely with shifts."""
+    H, W = gray.shape[-2:]
+    pad = 3
+    padded = torch.nn.functional.pad(gray, (pad, pad, pad, pad))
+    score = torch.zeros_like(gray)
+    t = 0.04
+    for dx, dy in _FAST_RING:
+        shifted = padded[..., pad + dy:pad + dy + H, pad + dx:pad + dx + W]
+        score = score + torch.clamp(torch.abs(shifted - gray) - t, min=0.0)
+    return score
+
+
+RESPONSE_FNS = {
+    "gftt": shi_tomasi_response,
+    "harris": harris_response,
+    "dog": dog_response,
+    "fast": fast_response,
+}
+
+
+def register_detector(name: str, response_fn):
+    """Plug in a custom response-map detector (the reference's PyDetector
+    hook): a plugin is a function from a (H,W) tensor to a (H,W) score
+    tensor on the same device."""
+    RESPONSE_FNS[name] = response_fn
 
 
 def _peaks_top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -196,19 +254,44 @@ _TEST_IDX = _binned_test_indices()
 _TEST_IDX_DEV = {}
 
 
+def _on_device(cache: dict, host: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``host`` as a tensor on ``dev``, copied once a device."""
+    t = cache.get(str(dev))
+    if t is None:
+        t = cache[str(dev)] = torch.from_numpy(host).to(dev)
+    return t
+
+
+def _patch_origin(uv: torch.Tensor, H: int, W: int, patch: int):
+    """Top-left corner (u0, v0) of each keypoint's patch centred at
+    round(uv), clamped inside the image."""
+    c = patch // 2
+    u0 = (torch.round(uv[:, 0]).long() - c).clamp(0, W - patch)
+    v0 = (torch.round(uv[:, 1]).long() - c).clamp(0, H - patch)
+    return u0, v0
+
+
+def extract_patches(img: torch.Tensor, uv: torch.Tensor, patch: int = _PATCH) -> torch.Tensor:
+    """(K,patch,patch) float32 patches centred at round(uv) (clamped inside
+    the image), of the image's values rounded to bfloat16: the JAX twin
+    selects them with one-hot bfloat16 products, which round each value
+    once and add nothing else."""
+    H, W = img.shape[-2:]
+    u0, v0 = _patch_origin(uv, H, W, patch)
+    rr = torch.arange(patch, device=img.device)
+    rows = (v0[:, None] + rr)[:, :, None]                  # (K,patch,1)
+    cols = (u0[:, None] + rr)[:, None, :]                  # (K,1,patch)
+    return img.to(torch.bfloat16).float()[rows, cols]
+
+
 def describe(gray_blur: torch.Tensor, kps: Keypoints) -> torch.Tensor:
     """Rotated-BRIEF sign descriptors: (K, 256) int8 in {-1,+1}, 0 rows for
     invalid keypoints. One 32x32 patch per keypoint at round(uv), values
     rounded to bfloat16 as the JAX package's patch products do; the
     orientation picks one of 30 rotated test sets."""
     H, W = gray_blur.shape[-2:]
-    dev = gray_blur.device
-    tests = _TEST_IDX_DEV.get(str(dev))
-    if tests is None:
-        tests = _TEST_IDX_DEV[str(dev)] = torch.from_numpy(_TEST_IDX).to(dev)
-    c = _PATCH // 2
-    u0 = (torch.round(kps.uv[:, 0]).long() - c).clamp(0, W - _PATCH)
-    v0 = (torch.round(kps.uv[:, 1]).long() - c).clamp(0, H - _PATCH)
+    tests = _on_device(_TEST_IDX_DEV, _TEST_IDX, gray_blur.device)
+    u0, v0 = _patch_origin(kps.uv, H, W, _PATCH)
     two_pi = 2.0 * np.pi
     bins = torch.round(_mod(kps.angle, two_pi) / two_pi * _N_ANGLE_BINS).long() % _N_ANGLE_BINS
     t = tests[bins]                                        # (K,256,2)
@@ -241,21 +324,99 @@ def detect_and_describe(gray: torch.Tensor, max_kp: int, use_grid: bool = True,
                         grid: Tuple[int, int] = (4, 4), quality_level: float = 0.01,
                         nms_size: int = 7, subpixel: bool = True,
                         detector: str = "gftt", descriptor: str = "brief"):
-    """Score map -> NMS top-k -> orientation -> descriptor. Returns
-    (Keypoints, desc (K,256) +-1 int8). Orientation and descriptor are
-    sampled at the integer peak; the subpixel offset is applied after, for
-    geometry only."""
-    if detector != "gftt" or descriptor != "brief":
-        raise NotImplementedError(
-            f"detector {detector!r} / descriptor {descriptor!r}: only GFTT/BRIEF "
-            "is ported; Harris, DoG, FAST and SIFT come with a later slice")
-    score = shi_tomasi_response(gray)
+    """Score map -> NMS top-k -> orientation -> descriptor. ``detector``
+    names a response map of ``RESPONSE_FNS`` (gftt | harris | dog | fast or
+    a registered plugin); ``descriptor`` is "brief" ((K,256) +-1 int8) or
+    "sift" ((K,128) float32, matched with metric="l2"). Returns
+    (Keypoints, desc). Orientation and descriptor are sampled at the
+    integer peak; the subpixel offset is applied after, for geometry
+    only."""
+    if descriptor not in ("brief", "sift"):
+        raise KeyError(f"unknown descriptor {descriptor!r}; use 'brief' or 'sift'")
+    score = RESPONSE_FNS[detector](gray)
     if use_grid:
         kps = select_top_k_grid(score, max_kp, grid, nms_size, quality_level)
     else:
         kps = select_top_k(score, max_kp, nms_size, quality_level)
     kps = compute_orientation(gray, kps)
-    desc = describe(im.gaussian_blur(gray, sigma=2.0, radius=4), kps)
+    blur = im.gaussian_blur(gray, sigma=2.0, radius=4)
+    desc = describe(blur, kps) if descriptor == "brief" else describe_sift(blur, kps)
     if subpixel:
         kps = refine_subpixel(score, kps)
     return kps, desc
+
+
+# --------------------------------------------- SIFT-family float descriptor
+
+
+_SIFT_CELLS = 4       # 4x4 spatial grid
+_SIFT_ORI = 8         # orientation bins
+SIFT_DIM = _SIFT_CELLS * _SIFT_CELLS * _SIFT_ORI   # 128
+
+
+def _sift_spatial_weights(n_bins: int = _N_ANGLE_BINS) -> np.ndarray:
+    """Per-orientation-bin spatial pooling matrices (n_bins, patch^2, 16):
+    rotated, Gaussian-weighted bilinear assignment of each patch pixel to
+    the 4x4 descriptor grid (built with numpy exactly as the JAX twin
+    builds it)."""
+    out = np.zeros((n_bins, _PATCH * _PATCH, _SIFT_CELLS * _SIFT_CELLS), np.float32)
+    c = (_PATCH - 1) / 2.0
+    half = _PATCH / 2.0
+    sigma = 0.5 * _PATCH
+    for b in range(n_bins):
+        ang = 2.0 * np.pi * b / n_bins
+        ca, sa = np.cos(ang), np.sin(ang)
+        for py in range(_PATCH):
+            for px in range(_PATCH):
+                x, y = px - c, py - c
+                # rotate into the keypoint frame
+                rx = ca * x + sa * y
+                ry = -sa * x + ca * y
+                g = np.exp(-(rx * rx + ry * ry) / (2 * sigma * sigma))
+                # continuous cell coords in [0,4)
+                cx = (rx + half) / _PATCH * _SIFT_CELLS - 0.5
+                cy = (ry + half) / _PATCH * _SIFT_CELLS - 0.5
+                x0, y0 = int(np.floor(cx)), int(np.floor(cy))
+                fx, fy = cx - x0, cy - y0
+                for dy, wy in ((0, 1 - fy), (1, fy)):
+                    for dx, wx in ((0, 1 - fx), (1, fx)):
+                        gx, gy = x0 + dx, y0 + dy
+                        if 0 <= gx < _SIFT_CELLS and 0 <= gy < _SIFT_CELLS:
+                            out[b, py * _PATCH + px, gy * _SIFT_CELLS + gx] += g * wy * wx
+    return out
+
+
+_SIFT_SPATIAL = _sift_spatial_weights()
+_SIFT_SPATIAL_DEV = {}
+
+
+def describe_sift(gray_blur: torch.Tensor, kps: Keypoints) -> torch.Tensor:
+    """SIFT-family gradient-histogram descriptor: (K, 128) float32,
+    L2-normalised with the 0.2 clip and renormalisation, 0 rows for
+    invalid keypoints. Patch gradients by central differences, soft
+    assignment of each pixel's gradient to 8 orientation bins relative to
+    the keypoint angle, and rotated spatial pooling by the keypoint's
+    orientation bin (one batched product)."""
+    K = kps.uv.shape[0]
+    patches = extract_patches(gray_blur, kps.uv)            # (K,P,P)
+    zx = patches.new_zeros((K, _PATCH, 1))
+    zy = patches.new_zeros((K, 1, _PATCH))
+    gx = torch.cat([zx, patches[:, :, 2:] - patches[:, :, :-2], zx], dim=2)
+    gy = torch.cat([zy, patches[:, 2:, :] - patches[:, :-2, :], zy], dim=1)
+    mag = torch.sqrt(gx * gx + gy * gy + 1e-12)
+    theta = torch.atan2(gy, gx) - kps.angle[:, None, None]  # keypoint frame
+    two_pi = 2.0 * np.pi
+    t = _mod(theta, two_pi) / two_pi * _SIFT_ORI
+    b0f = torch.floor(t)
+    f = (t - b0f).reshape(K, -1, 1)
+    b0 = (b0f.long() % _SIFT_ORI).reshape(K, -1, 1)
+    b1 = (b0 + 1) % _SIFT_ORI
+    obins = torch.arange(_SIFT_ORI, device=patches.device)
+    w_ori = ((b0 == obins) * (1.0 - f) + (b1 == obins) * f) * mag.reshape(K, -1, 1)
+    bins = torch.round(_mod(kps.angle, two_pi) / two_pi * _N_ANGLE_BINS).long() % _N_ANGLE_BINS
+    wsp = _on_device(_SIFT_SPATIAL_DEV, _SIFT_SPATIAL, patches.device)[bins]   # (K,P2,16)
+    desc = torch.bmm(wsp.transpose(1, 2), w_ori).reshape(K, SIFT_DIM)        # (K,16*8)
+    desc = desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-9)
+    desc = torch.clamp(desc, max=0.2)
+    desc = desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-9)
+    return torch.where(kps.valid[:, None], desc, torch.zeros_like(desc))

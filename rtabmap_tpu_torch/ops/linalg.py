@@ -129,6 +129,7 @@ def eigvec_min_sym3(A: torch.Tensor):
     best = torch.argmax(n, dim=-1)
     v = torch.where((best == 0)[..., None], c01, torch.where((best == 1)[..., None], c02, c12))
     nrm = torch.linalg.norm(v, dim=-1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device).expand(v.shape)
+    fallback = torch.zeros_like(v)   # +z, built on the device (capturable in a CUDA graph)
+    fallback[..., 2] = 1.0
     v = torch.where(nrm > 1e-15, v / torch.clamp_min(nrm, 1e-30), fallback)
     return lam, v

@@ -4,15 +4,16 @@ Port of ``rtabmap_tpu/ops/matching.py``: ``similarity_matrix``,
 ``hamming_matrix``, ``knn_blocked`` (the plain version of the vocabulary
 2-NN kernel, ``ops/cuda/vocab_knn.py``) and the NNDR matchers of the
 visual odometry and registration (``match_nndr`` with its guess-projected
-window, ``match_nndr_bidir``, ``cross_check``, ``match_mutual_nndr``).
-For +-1 descriptors ``hamming = (D - a.b)/2`` and every product here is
-exact in float32. The float-descriptor ``l2`` metric and ``gms_filter``
-come with a later slice.
+window, ``match_nndr_bidir``, ``cross_check``, ``match_mutual_nndr``),
+the float-descriptor ``l2`` metric and the Grid Motion Statistics filter
+``gms_filter``. For +-1 descriptors ``hamming = (D - a.b)/2`` and every
+product here is exact in float32.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from rtabmap_tpu_torch.ops.features import DESC_DIM
@@ -66,12 +67,19 @@ def knn_blocked(query: torch.Tensor, base: torch.Tensor, k: int,
     return dists.float(), idx
 
 
+def l2_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared-L2 distances of float descriptors (...,Ka,D) x (...,Kb,D)
+    by one product, |a|^2 + |b|^2 - 2ab, clamped at 0 (the SIFT-family
+    and SuperPoint metric)."""
+    a, b = a.float(), b.float()
+    sim = a @ b.transpose(-1, -2)
+    na = (a * a).sum(-1)
+    nb = (b * b).sum(-1)
+    return torch.clamp(na[..., :, None] + nb[..., None, :] - 2.0 * sim, min=0.0)
+
+
 def distance_matrix(a: torch.Tensor, b: torch.Tensor, metric: str = "hamming") -> torch.Tensor:
-    if metric != "hamming":
-        raise NotImplementedError(
-            f"the {metric!r} metric (float descriptors, SIFT's) is not ported yet; it "
-            "comes with the classical-front-end slice")
-    return hamming_matrix(a, b)
+    return hamming_matrix(a, b) if metric == "hamming" else l2_matrix(a, b)
 
 
 class Matches(NamedTuple):
@@ -138,3 +146,53 @@ def match_nndr_bidir(desc_a, valid_a, desc_b, valid_b, nndr: float = 0.8,
 def match_mutual_nndr(desc_a, valid_a, desc_b, valid_b, nndr: float = 0.8) -> Matches:
     m_ab, m_ba = match_nndr_bidir(desc_a, valid_a, desc_b, valid_b, nndr)
     return m_ab._replace(valid=cross_check(m_ab, m_ba))
+
+
+# ------------------------------------------------------------------------ GMS
+
+
+def _box3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 box sum over the last two axes, zero outside (the twin's SAME
+    convolution with a ones kernel)."""
+    p = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    h, w = x.shape[-2:]
+    return sum(p[..., dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3))
+
+
+def gms_filter(uv_a, uv_b_matched, match_valid, shape_a, shape_b, grid: int = 8,
+               threshold_factor: float = 6.0) -> torch.Tensor:
+    """Grid-based Motion Statistics match verification (the reference's
+    Vis/CorNNType 7, GMS/ThresholdFactor 6), batched over leading axes:
+    uv_a (...,K,2) keypoints in A, uv_b_matched (...,K,2) their matched
+    positions in B, match_valid (...,K), shapes (H, W). The matches are
+    counted per (A cell, B cell) pair of a grid x grid grid on each image;
+    a match survives when the 3x3 neighbourhood of its cell pair, over both
+    grids, holds at least threshold_factor * sqrt(n_i) matches, n_i being
+    the mean matches per A cell around its A cell. The counts and box sums
+    are whole numbers, exact in float32 in any order of addition."""
+    Ha, Wa = shape_a
+    Hb, Wb = shape_b
+
+    def cell(uv, H, W):
+        return ((uv[..., 1] * grid / H).clamp(0, grid - 1).long() * grid
+                + (uv[..., 0] * grid / W).clamp(0, grid - 1).long())
+
+    ca, cb = cell(uv_a, Ha, Wa), cell(uv_b_matched, Hb, Wb)
+    lead = match_valid.shape[:-1]
+    G = grid * grid
+    n_batch = int(np.prod(lead)) if lead else 1
+    pair = torch.where(match_valid, ca * G + cb, G * G).reshape(n_batch, -1)
+    pair = pair + torch.arange(n_batch, device=pair.device)[:, None] * (G * G + 1)
+    counts = torch.zeros(n_batch * (G * G + 1), dtype=torch.float32, device=pair.device)
+    counts.index_add_(0, pair.reshape(-1), torch.ones(pair.numel(), device=pair.device))
+    counts = counts.reshape(n_batch, G * G + 1)[:, :G * G].reshape(n_batch, G, G)
+    c4 = counts.reshape(n_batch, grid, grid, grid, grid)        # (ay, ax, by, bx)
+    s = _box3(c4)                                                # over B cells
+    s = _box3(s.permute(0, 3, 4, 1, 2)).permute(0, 3, 4, 1, 2)   # over A cells
+    region = _box3(counts.sum(-1).reshape(n_batch, grid, grid)).reshape(n_batch, G)
+    ai = ca.reshape(n_batch, -1).clamp(0, G - 1)
+    bi = cb.reshape(n_batch, -1).clamp(0, G - 1)
+    n_i = torch.gather(region, 1, ai) / 9.0
+    thr = threshold_factor * torch.sqrt(torch.clamp(n_i, min=1e-6))
+    support = torch.gather(s.reshape(n_batch, G * G), 1, ai * G + bi)
+    return match_valid & (support >= thr).reshape(match_valid.shape)

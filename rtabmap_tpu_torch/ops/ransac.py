@@ -240,7 +240,8 @@ def ransac_pnp(pts3d, uv, valid, cam: C.CameraModel,
                reproj_px: float = 4.0, min_inliers: int = 20,
                guess: Optional[torch.Tensor] = None,
                pts3d_query: Optional[torch.Tensor] = None, refine_iters: int = 8,
-               indices: Optional[Tuple[torch.Tensor, ...]] = None) -> RansacResult:
+               indices: Optional[Tuple[torch.Tensor, ...]] = None,
+               graphs: bool = True) -> RansacResult:
     """PnP-RANSAC: the camera pose from world points pts3d (...,K,3) and
     pixel observations uv (...,K,2) with flags valid (...,K). Returns the
     camera-in-world motion ``T_wc``.
@@ -253,12 +254,60 @@ def ransac_pnp(pts3d, uv, valid, cam: C.CameraModel,
     covariance follows the reference's robust 3D-disagreement convention
     (2.1981 x the lower quartile of the inliers' squared 3D distances and
     angles) with query 3D, else the RMS reprojection error. ``indices``
-    replaces the drawn samples (see ``pnp_sample_indices``)."""
-    fx = cam.fx
-    thr_n = reproj_px / fx
-    xn = torch.stack([(uv[..., 0] - cam.cx) / cam.fx, (uv[..., 1] - cam.cy) / cam.fy], -1)
+    replaces the drawn samples (see ``pnp_sample_indices``).
+
+    On the card an unbatched call runs as one captured CUDA graph of its
+    shapes and options (``graphs=False``: eagerly, the ops the graph
+    replays): the solve is a few thousand small launches and no host
+    read."""
     if indices is None:
         indices = pnp_sample_indices(generator, valid, iters, pts3d_query is not None)
+    opts = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(reproj_px),
+            int(min_inliers), int(refine_iters))
+    args = (pts3d, uv, valid, guess, pts3d_query) + tuple(indices)
+    if pts3d.device.type != "cuda" or not graphs or pts3d.dim() != 2:
+        return _ransac_pnp(*args, opts=opts)
+    key = (pts3d.device, opts) + tuple(None if t is None else (tuple(t.shape), t.dtype)
+                                       for t in args)
+    cap = _PNP_GRAPHS.get(key)
+    if cap is None:
+        cap = _PNP_GRAPHS[key] = _CapturedPnP(args, opts)
+    return cap(args)
+
+
+class _CapturedPnP:
+    """``_ransac_pnp`` of one shape and option set captured in a CUDA
+    graph: the inputs are copied into static buffers, the graph replayed,
+    the result cloned from its static outputs."""
+
+    def __init__(self, args, opts):
+        self.args = tuple(None if t is None else t.clone() for t in args)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):   # warm-up (handles, workspaces) outside the capture
+            _ransac_pnp(*self.args, opts=opts)
+        torch.cuda.current_stream().wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _ransac_pnp(*self.args, opts=opts)
+
+    def __call__(self, args) -> RansacResult:
+        for dst, src in zip(self.args, args):
+            if dst is not None:
+                dst.copy_(src)
+        self.graph.replay()
+        return RansacResult(*(t.clone() for t in self.out))
+
+
+# Captured PnP-RANSAC graphs by (device, options, shapes): a few a process
+# (the odometry's, the registrations' with and without a guess).
+_PNP_GRAPHS: dict = {}
+
+
+def _ransac_pnp(pts3d, uv, valid, guess, pts3d_query, *indices, opts) -> RansacResult:
+    fx, fy, cx, cy, reproj_px, min_inliers, refine_iters = opts
+    thr_n = reproj_px / fx
+    xn = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], -1)
     idx = indices[0].long()
     models = _dlt_pnp(_gather_rows(pts3d, idx), _gather_rows(xn, idx))
     if pts3d_query is not None:
@@ -282,7 +331,7 @@ def ransac_pnp(pts3d, uv, valid, cam: C.CameraModel,
     inliers = valid & (err < thr_n) & (depth > 0)
     n = inliers.sum(-1)
     T_wc = T.inverse(Tcw)
-    inf = torch.tensor(float("inf"), dtype=pts3d.dtype, device=pts3d.device)
+    inf = torch.full((), float("inf"), dtype=pts3d.dtype, device=pts3d.device)
     if pts3d_query is not None:
         has_q = (pts3d_query != 0.0).any(-1)
         mapped = T.apply(T_wc, pts3d_query)

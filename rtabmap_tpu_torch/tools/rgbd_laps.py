@@ -22,6 +22,10 @@ graph optimization). The sequences:
 
 ``--learned`` runs the learned front end (``Kp/DetectorStrategy`` 11,
 SuperPoint, and ``Vis/CorNNType`` 6, the bundled attentional matcher).
+``--strategy N`` sets ``Kp/DetectorStrategy`` N (a classical front end:
+e.g. 1 SIFT, whose float descriptors become sign-LSH words, or 2 ORB,
+FAST + rotated BRIEF) and ``--cor-nn-type N`` sets ``Vis/CorNNType`` N
+(7: GMS-filtered matches in the engine's registrations).
 ``--gt-odometry`` skips the odometry: each frame's features and its
 ground-truth pose go straight into ``Rtabmap.process`` (the loop of
 ``tests/test_learned_stack.py``); the summary then adds each frame's
@@ -32,7 +36,8 @@ package; ``chip_smoke.py`` holds the port's runs on the card to it.
 
 Usage: python -m rtabmap_tpu_torch.tools.rgbd_laps [--device cpu]
        [--sequence parity|full|full-default-room|full-revisit] [--frames N]
-       [--seed S] [--learned] [--gt-odometry] [--profile N] [--trace-dir DIR]
+       [--seed S] [--learned | --strategy N] [--cor-nn-type N] [--gt-odometry]
+       [--profile N] [--trace-dir DIR]
 
 ``--profile N`` traces the last N frames with ``torch.profiler`` and
 prints the device's busy share, device operations a frame and the top
@@ -74,6 +79,19 @@ FULL_WORLD = (8.0, 6.0, 8.0)
 SEQUENCES = ("parity", "full", "full-default-room", "full-revisit")
 # the learned front end: SuperPoint features, the attentional matcher
 LEARNED = {"Kp/DetectorStrategy": 11, "Vis/CorNNType": 6}
+
+
+def front_end_params(learned: bool = False, strategy: Optional[int] = None,
+                     cor_nn_type: Optional[int] = None) -> Parameters:
+    """The parameters of a run: the learned front end, or the
+    ``Kp/DetectorStrategy`` and ``Vis/CorNNType`` given, over the
+    defaults."""
+    p = Parameters(LEARNED if learned else {})
+    if strategy is not None:
+        p.set("Kp/DetectorStrategy", strategy)
+    if cor_nn_type is not None:
+        p.set("Vis/CorNNType", cor_nn_type)
+    return p
 
 
 def sequence_spec(name: str) -> Dict:
@@ -219,6 +237,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0, help="shifts the RANSAC generators")
     ap.add_argument("--learned", action="store_true",
                     help="SuperPoint features and the attentional matcher")
+    ap.add_argument("--strategy", type=int, default=None, metavar="N",
+                    help="Kp/DetectorStrategy N (a classical front end)")
+    ap.add_argument("--cor-nn-type", type=int, default=None, metavar="N",
+                    help="Vis/CorNNType N (7: GMS)")
     ap.add_argument("--gt-odometry", action="store_true",
                     help="ground-truth poses into Rtabmap.process, no odometry")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -227,7 +249,9 @@ def main(argv=None):
                     help="trace the whole run into DIR (Tpu/ProfileDir; not with "
                          "--gt-odometry or --profile)")
     args = ap.parse_args(argv)
-    params = Parameters(LEARNED if args.learned else {})
+    if args.learned and args.strategy is not None:
+        ap.error("--learned sets the strategy: not with --strategy")
+    params = front_end_params(args.learned, args.strategy, args.cor_nn_type)
     if args.trace_dir and (args.gt_odometry or args.profile):
         ap.error("--trace-dir traces run_dataset's run: not with --gt-odometry or --profile")
     if args.trace_dir:

@@ -7,6 +7,8 @@ an exact second lap) with the JAX renderer and runs them through the JAX
 package's ``run_dataset`` (``FeatureExtractor`` -> ``OdometryF2M`` ->
 ``Rtabmap.process``, default parameters) on the CPU. ``--learned`` sets
 ``Kp/DetectorStrategy`` 11 and ``Vis/CorNNType`` 6 (``rgbd_laps.LEARNED``);
+``--strategy N`` sets ``Kp/DetectorStrategy`` N (a classical front end)
+and ``--cor-nn-type N`` ``Vis/CorNNType`` N (7: GMS);
 ``--gt-odometry`` feeds each frame's features and ground-truth pose
 straight into ``Rtabmap.process`` (the loop of
 ``tests/test_learned_stack.py``) and prints each frame's highest
@@ -17,7 +19,8 @@ numbers.
 
 Usage (from the repository root):
     PYTHONPATH=. python scripts/jax_rgbd_laps.py [--sequence parity full full-revisit]
-        [--seed S] [--learned] [--gt-odometry]
+        [--seed S] [--learned | --strategy N] [--cor-nn-type N] [--gt-odometry]
+        [--frames N]
 """
 from __future__ import annotations
 
@@ -62,7 +65,8 @@ def run_gt_odometry(frames, cam, p, max_kp: int, node_capacity: int, seed: int) 
             "hyp_ids": hyp_ids, "hyp_values": hyp_values}
 
 
-def run(name: str, seed: int = 0, learned: bool = False, gt_odometry: bool = False) -> dict:
+def run(name: str, seed: int = 0, learned: bool = False, gt_odometry: bool = False,
+        strategy=None, cor_nn_type=None, frames: int = 0) -> dict:
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -76,6 +80,8 @@ def run(name: str, seed: int = 0, learned: bool = False, gt_odometry: bool = Fal
     from rtabmap_tpu_torch.tools.rgbd_laps import LEARNED, closure_errors, sequence_spec
 
     spec = sequence_spec(name)
+    if frames:
+        spec["poses"] = spec["poses"][:frames]
     W, H = spec["size"]
     cam = C.CameraModel.make(spec["f"], spec["f"], spec["c"][0], spec["c"][1], W, H)
     world = World(half_extent=jnp.asarray(spec["world"], jnp.float32), seed=0)
@@ -92,6 +98,10 @@ def run(name: str, seed: int = 0, learned: bool = False, gt_odometry: bool = Fal
     if learned:
         for k, v in LEARNED.items():
             p.set(k, v)
+    if strategy is not None:
+        p.set("Kp/DetectorStrategy", strategy)
+    if cor_nn_type is not None:
+        p.set("Vis/CorNNType", cor_nn_type)
     if gt_odometry:
         out = run_gt_odometry(frames(), cam, p, spec["max_kp"], spec["node_capacity"], seed)
     else:
@@ -107,6 +117,7 @@ def run(name: str, seed: int = 0, learned: bool = False, gt_odometry: bool = Fal
     est = np.stack([opt[hist[k].ref_id] for k in have])
     extra = {k: out[k] for k in ("hyp_ids", "hyp_values") if k in out}
     return {"sequence": name, "seed": seed, "learned": learned, "gt_odometry": gt_odometry,
+            "strategy": int(p["Kp/DetectorStrategy"]),
             "frames": out["frames"], "loops": out["loops"],
             "proximity": int(sum(s.get("Proximity/Space links added/") for s in hist)),
             "lost": out["lost"], "ate_odom": out["ate_odom"],
@@ -131,6 +142,10 @@ def main():
     ap.add_argument("--seed", type=int, default=0, help="shifts the RANSAC keys")
     ap.add_argument("--learned", action="store_true",
                     help="Kp/DetectorStrategy 11 and Vis/CorNNType 6")
+    ap.add_argument("--strategy", type=int, default=None,
+                    help="Kp/DetectorStrategy N (a classical front end)")
+    ap.add_argument("--cor-nn-type", type=int, default=None, help="Vis/CorNNType N")
+    ap.add_argument("--frames", type=int, default=0, help="cut each sequence (0 = whole)")
     ap.add_argument("--gt-odometry", action="store_true",
                     help="ground-truth poses into Rtabmap.process, no odometry")
     args = ap.parse_args()
@@ -140,7 +155,8 @@ def main():
     if args.seed and not args.gt_odometry:
         _seed_engines(args.seed)
     for name in args.sequence:
-        print(json.dumps(run(name, args.seed, args.learned, args.gt_odometry)), flush=True)
+        print(json.dumps(run(name, args.seed, args.learned, args.gt_odometry,
+                             args.strategy, args.cor_nn_type, args.frames)), flush=True)
 
 
 if __name__ == "__main__":

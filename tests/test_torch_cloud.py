@@ -42,16 +42,6 @@ def _scan(n_azimuth=90, n_rings=16, pose_index=3):
     return np.array(pts), np.array(valid)
 
 
-@pytest.mark.parametrize("voxel", [0.05, 0.08, 0.3])
-def test_voxel_filter_mask_exact(voxel):
-    pts, valid = _scan(180, 6)
-    valid[::7] = False
-    mj = np.asarray(JCL.voxel_filter(jnp.asarray(pts), jnp.asarray(valid), voxel))
-    mt = CL.voxel_filter(torch.from_numpy(pts), torch.from_numpy(valid), voxel).numpy()
-    np.testing.assert_array_equal(mt, mj)
-    assert 0 < mt.sum() < valid.sum()
-
-
 def _defined(pts, valid, k=8):
     """Points whose k-NN covariance has two smallest eigenvalues at least
     1e-3 of its trace apart (float64, the neighbours of the JAX twin)."""

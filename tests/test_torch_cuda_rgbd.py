@@ -248,3 +248,29 @@ def test_optimize_dense_graph_on_the_card_equals_the_cpu(mode):
         out, c = PG.optimize_dense(g, switch_mask=sm, graphs=graphs, **opts)
         np.testing.assert_allclose(out.poses.cpu().numpy(), cpu.poses.numpy(), atol=1e-3)
         assert abs(float(c) - float(cc)) <= 1e-3 * float(cc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guess", [False, True])
+def test_ransac_pnp_graph_equals_its_eager_ops_and_the_cpu(guess):
+    """The F2M odometry's PnP-RANSAC (frame 3's pixels against frame 0's
+    3D, frame 3's own 3D as the query, with and without a guess in the
+    pool): the captured CUDA graph (twice: capture, then replay) equals the
+    eager ops on the card exactly, and the CPU within 1e-4 (inlier masks
+    exactly), the same draws on every side."""
+    dev = _card()
+    (fa, _), (fb, _) = _frames([0, 3])
+    m = M.match_nndr(fb.desc, fb.valid, fa.desc, fa.valid & fa.valid3d)
+    pts, query = fa.pts3d[m.idx.long()], torch.where(fb.valid3d[:, None], fb.pts3d, 0.0)
+    idx = R.pnp_sample_indices(torch.Generator().manual_seed(0), m.valid, 256, True)
+    g = torch.eye(3, 4) if guess else None
+    cpu = R.ransac_pnp(pts, fb.uv, m.valid, CAM, guess=g, pts3d_query=query, indices=idx)
+    on = [x.to(dev) for x in (pts, fb.uv, m.valid, query)]
+    kw = dict(guess=None if g is None else g.to(dev), pts3d_query=on[3],
+              indices=tuple(i.to(dev) for i in idx))
+    outs = [R.ransac_pnp(*on[:3], CAM, graphs=gr, **kw) for gr in (True, True, False)]
+    for out in outs[:2]:
+        for a, b in zip(out, outs[2]):
+            assert torch.equal(a, b)
+    assert torch.equal(outs[2].inliers.cpu(), cpu.inliers) and bool(cpu.success)
+    np.testing.assert_allclose(outs[2].transform.cpu().numpy(), cpu.transform.numpy(), atol=1e-4)

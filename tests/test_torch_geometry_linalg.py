@@ -108,26 +108,3 @@ def test_symmetric_eigen_with_fallbacks():
     assert dot.min() >= 1 - 1e-5
     np.testing.assert_array_equal(vt.numpy()[:2], np.asarray(vj)[:2])
     np.testing.assert_array_equal(vt.numpy()[1], [0.0, 0.0, 1.0])
-
-
-@pytest.mark.parametrize("case", ["general", "planar", "three-point", "zero-angle",
-                                  "tiny-angle", "near-pi"])
-def test_rigid_from_correspondences(case):
-    rng = np.random.default_rng(["general", "planar", "three-point", "zero-angle",
-                                 "tiny-angle", "near-pi"].index(case) + 20)
-    K = 3 if case == "three-point" else 60
-    src = rng.normal(size=(K, 3)).astype(np.float32)
-    if case in ("planar", "three-point"):
-        src[:, 2] = 0.0
-    angle = {"zero-angle": 0.0, "tiny-angle": 1e-8, "near-pi": np.pi - 1e-6}.get(case, 0.7)
-    axis = np.array([0.3, -0.5, 0.8]) / np.linalg.norm([0.3, -0.5, 0.8])
-    xi = np.concatenate([[0.2, -0.1, 0.4], axis * angle]).astype(np.float32)
-    P = np.asarray(JT.se3_exp(jnp.asarray(xi)))
-    dst = (src @ P[:, :3].T + P[:, 3]).astype(np.float32)
-    w = rng.uniform(0.5, 1.0, K).astype(np.float32)
-    if K > 3:
-        w[:5] = 0.0
-    Rt = rigid_from_correspondences(_t(src), _t(dst), _t(w))
-    Rj = j_rigid(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w))
-    _close(Rt, Rj, 1e-5)
-    np.testing.assert_allclose(Rt.numpy(), P, atol=1e-4)

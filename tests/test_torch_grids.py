@@ -149,22 +149,3 @@ def test_cloud_map():
     np.testing.assert_allclose(ct, cj, atol=1e-5)
     np.testing.assert_allclose(tm.assemble({1: poses[1]}), jm.assemble({1: poses[1]}),
                                atol=1e-5)
-
-
-def test_elevation_map():
-    jm = JV.ElevationMap(cell_size=0.2, size_m=10.0)
-    tm = V.ElevationMap(cell_size=0.2, size_m=10.0, device="cpu")
-    rng = np.random.default_rng(8)
-    for nid in range(1, 4):
-        pts = np.stack([rng.uniform(-3, 3, 400), rng.uniform(-3, 3, 400),
-                        rng.uniform(-1, 2, 400)], 1).astype(np.float32)
-        valid = rng.random(400) > 0.1
-        pose = np.eye(3, 4, dtype=np.float32)
-        pose[:, 3] = [0.5 * nid, -0.2, 0.1]
-        jm.update(nid, pose, pts, valid)
-        tm.update(nid, pose, pts, valid)
-    jm.update(2, np.eye(3, 4, dtype=np.float32), *jm.cache[2])   # a move re-assembles
-    tm.update(2, np.eye(3, 4, dtype=np.float32), *tm.cache[2])
-    for a, b in zip(tm.arrays(), jm.arrays()):
-        np.testing.assert_allclose(a, b, atol=1e-5)
-    assert tm.arrays()[2].sum() > 100

@@ -35,7 +35,10 @@ new = {"rtabmap_tpu_torch.ops.epipolar", "rtabmap_tpu_torch.core.laser_scan",
        "rtabmap_tpu_torch.models", "rtabmap_tpu_torch.models.superpoint",
        "rtabmap_tpu_torch.models.superglue", "rtabmap_tpu_torch.models.superglue_official",
        "rtabmap_tpu_torch.models.netvlad", "rtabmap_tpu_torch.models.convert",
-       "rtabmap_tpu_torch.tools.navigation", "rtabmap_tpu_torch.optim"}
+       "rtabmap_tpu_torch.tools.navigation", "rtabmap_tpu_torch.optim",
+       "rtabmap_tpu_torch.ops.registration", "rtabmap_tpu_torch.odometry.f2f",
+       "rtabmap_tpu_torch.odometry.motion_filter", "rtabmap_tpu_torch.odometry.mono",
+       "rtabmap_tpu_torch.tools.odometries"}
 assert new <= set(names), sorted(new - set(names))
 # the readers decode PNG and read sensor.yaml themselves (tools/bow_mapping.py
 # imports PIL only when it reads the JPEG samples)
@@ -113,6 +116,9 @@ def test_entry_points_without_a_card_raise():
                  lambda: create_odometry(cam, rgbd_p),
                  lambda: run_dataset([], cam, rgbd_p, verbose=False),
                  lambda: FeatureExtractor(cam, p),
+                 lambda: FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": 1})),
+                 lambda: create_odometry(cam, Parameters({"Odom/Strategy": 1})),
+                 lambda: create_odometry(cam, None, strategy="mono"),
                  lambda: VWDictionary(capacity=1024),
                  lambda: OdometryScanF2M(),
                  lambda: create_odometry(None, lidar_p),
@@ -156,8 +162,21 @@ def test_unported_paths_raise_not_implemented():
             words_per_frame=8, device="cpu")          # the RGB-D tick is ported
     with pytest.raises(NotImplementedError):
         Rtabmap(cam, Parameters({"RGBD/Enabled": False}), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):     # FAST/BRIEF
-        FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": 2}), device="cpu")
+    # Odom/Strategy 1 (F2F) and mono resolve to the ported odometries
+    from rtabmap_tpu_torch.odometry import create_odometry
+    from rtabmap_tpu_torch.odometry.f2f import OdometryF2F
+    from rtabmap_tpu_torch.odometry.mono import OdometryMono
+
+    assert isinstance(create_odometry(cam, Parameters({"Odom/Strategy": 1}), device="cpu"),
+                      OdometryF2F)
+    assert isinstance(create_odometry(cam, None, strategy="mono", device="cpu"), OdometryMono)
+    with pytest.raises(RuntimeError):            # an external library, as in the twin
+        create_odometry(cam, Parameters({"Odom/Strategy": 5}), device="cpu")
+    # every classical strategy runs (tests/test_torch_detectors.py,
+    # tests/test_torch_sift_lsh.py)
+    for strategy in (0, 1, 2, 3, 4, 7, 9, 12, 14):
+        fe = FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": strategy}), device="cpu")
+        assert not fe.learned and (fe.detector, fe.descriptor) != ("gftt", "brief")
     # SuperPoint is ported (tests/test_torch_superpoint.py)
     assert FeatureExtractor(cam, Parameters({"Kp/DetectorStrategy": 11}), device="cpu").learned
     slam = Rtabmap(cam, Parameters({"RGBD/Enabled": False,

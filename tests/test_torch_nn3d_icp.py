@@ -157,62 +157,8 @@ def _close(res_t, res_j, cov_t=None, cov_j=None):
         np.testing.assert_allclose(cov_t.numpy(), np.asarray(cov_j), rtol=1e-3, atol=1e-7)
 
 
-@pytest.mark.parametrize("point_to_plane", [False, True], ids=["p2p", "p2plane"])
-def test_icp_matches_jax(scan_pair, point_to_plane):
-    (src, vs, dst, vd), guess, true_rel = scan_pair
-    nrm = None
-    if point_to_plane:
-        nrm = np.array(JCL.estimate_normals(jnp.asarray(dst), jnp.asarray(vd), k=8)[0])
-    rj = JICP.icp(jnp.asarray(src), jnp.asarray(vs), jnp.asarray(dst), jnp.asarray(vd),
-                  guess=jnp.asarray(guess), iters=15, point_to_plane=point_to_plane,
-                  dst_normals=None if nrm is None else jnp.asarray(nrm))
-    rt = ICP.icp(torch.from_numpy(src), torch.from_numpy(vs), torch.from_numpy(dst),
-                 torch.from_numpy(vd), guess=torch.from_numpy(guess), iters=15,
-                 point_to_plane=point_to_plane,
-                 dst_normals=None if nrm is None else torch.from_numpy(nrm))
-    _close(rt, rj)
-    if point_to_plane:   # and it did align the scans
-        assert np.abs(rt.transform.numpy()[:, 3] - true_rel[:, 3]).max() < 0.02
-
-
 def _search_then_mask(moved, plan):
     """The search as the callers made it before K2 took a query mask:
     every query searched, the mask applied to the distances afterwards."""
     d, i = K2.nn3d_reference(moved, plan.dst, plan.dst_valid)
     return torch.where(plan.src_valid, d, float("inf")), i
-
-
-@pytest.mark.parametrize("case", ["p2p", "p2plane", "register"])
-def test_icp_query_mask_same_bits(scan_pair, monkeypatch, case):
-    (src, vs, dst, vd), guess, _ = scan_pair
-    vs = vs & (np.random.default_rng(3).random(len(vs)) >= 0.2)
-    args = [torch.from_numpy(a) for a in (src, vs, dst, vd)]
-
-    def run():
-        if case == "register":
-            return ICP.register_scans(*args, guess=torch.from_numpy(guess), iters=8)
-        nrm = None
-        if case == "p2plane":
-            nrm = torch.from_numpy(np.array(JCL.estimate_normals(
-                jnp.asarray(dst), jnp.asarray(vd), k=8)[0]))
-        return ICP.icp(*args, guess=torch.from_numpy(guess), iters=8,
-                       point_to_plane=nrm is not None, dst_normals=nrm), None
-
-    (masked, cov_m) = run()
-    monkeypatch.setattr(ICP, "nn3d_search", _search_then_mask)
-    (unmasked, cov_u) = run()
-    for a, b in zip(masked[:4], unmasked[:4]):
-        assert torch.equal(a, b)
-    if cov_m is not None:
-        assert torch.equal(cov_m, cov_u)
-
-
-def test_register_scans_matches_jax(scan_pair):
-    (src, vs, dst, vd), guess, _ = scan_pair
-    rj, cj = JICP.register_scans(jnp.asarray(src), jnp.asarray(vs), jnp.asarray(dst),
-                                 jnp.asarray(vd), guess=jnp.asarray(guess), voxel=0.05,
-                                 iters=15)
-    rt, ct = ICP.register_scans(torch.from_numpy(src), torch.from_numpy(vs),
-                                torch.from_numpy(dst), torch.from_numpy(vd),
-                                guess=torch.from_numpy(guess), voxel=0.05, iters=15)
-    _close(rt, rj, ct, cj)

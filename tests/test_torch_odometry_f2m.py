@@ -198,8 +198,10 @@ def test_odometry_wrapper_runs_and_loses_on_garbage(frames):
     rpy_q = T.to_xyzrpy(T.from_quaternion(torch.from_numpy(q))).numpy()
     np.testing.assert_allclose(rpy[3:5], rpy_q[3:5], atol=1e-5)
     np.testing.assert_array_equal(odom.pose.numpy(), pose.numpy())
-    with pytest.raises(NotImplementedError):
-        F.odom_step(odom.state, _port_frame(frames[4]), CAM, search_window=40.0)
+    # the guess-projected window (held to its twin in
+    # tests/test_torch_odometry_mono.py) runs from the wrapper's state
+    st, res = F.odom_step(odom.state, _port_frame(frames[4]), CAM, search_window=40.0)
+    assert res.success and res.num_matches > 0
 
 
 def test_odometry_with_imu_quat_matches_the_twin(frames, jax_fns):

@@ -112,30 +112,6 @@ def _priors(init):
     return idx, meas, info
 
 
-@pytest.mark.parametrize("mode", ["plain", "huber", "dcs", "priors"])
-def test_optimize_pcg_matches_jax(mode):
-    """'huber': the Huber kernel on every edge; 'dcs': the closures
-    switchable with the annealed phi; 'priors': unary xyz priors."""
-    init, ef, et, meas, info, switch = _ring()
-    pj = pt = {}
-    if mode == "priors":
-        idx, pm, pi = _priors(init)
-        pj = dict(priors_idx=jnp.asarray(idx, jnp.int32), priors_meas=jnp.asarray(pm),
-                  priors_info=jnp.asarray(pi))
-        pt = dict(priors_idx=idx, priors_meas=pm, priors_info=pi)
-    gj = JPG.make_graph(jnp.asarray(init), jnp.asarray(ef, jnp.int32), jnp.asarray(et, jnp.int32),
-                        jnp.asarray(meas), jnp.asarray(info), **pj)
-    gt = PG.make_graph(torch.from_numpy(init), ef, et, meas, info, **pt)
-    kw = {"robust": mode == "huber", "iters": 15, "cg_iters": 80}
-    oj, cj = JPG.optimize_pcg(gj, switch_mask=jnp.asarray(switch) if mode == "dcs" else None,
-                              **kw)
-    ot, ct = PG.optimize_pcg(gt, switch_mask=torch.from_numpy(switch) if mode == "dcs" else None,
-                             **kw)
-    np.testing.assert_allclose(ot.poses.numpy(), np.asarray(oj.poses), atol=1e-4)
-    assert abs(float(ct) - float(cj)) <= 1e-4 * abs(float(cj))
-    assert float(ct) < 0.5 * float(PG.graph_chi2(gt))
-
-
 def test_hx_product_matches_jax():
     """The matrix-free H x product against the twin's on random Jacobians,
     information (diagonal 1 .. 1e4), damping and a random x."""
@@ -245,33 +221,3 @@ def T_compose_inv(a, b, t):
     """inv(a) * b * t for (3,4) poses: a landmark seen from node b's link
     ``t``, as seen from node a."""
     return _mul(_mul(_inv(a), b), t).astype(np.float32)
-
-
-@pytest.mark.parametrize("scale", [1e-4, 1e-2, 0.3, 1.5])
-def test_closed_form_jacobians_equal_autodiff(scale):
-    """The closed-form edge and prior Jacobians against forward-mode
-    autodiff of the port's own residuals, in float64, from residuals near
-    zero (the solver's regime) to 1.5 rad."""
-    from torch.func import jacfwd, vmap
-
-    from rtabmap_tpu_torch.geometry import transform as T
-
-    gen = torch.Generator().manual_seed(int(scale * 1e4))
-    rnd = lambda n: torch.randn(n, 6, dtype=torch.float64, generator=gen)  # noqa: E731
-    pi, pj = T.se3_exp(rnd(64)), T.se3_exp(rnd(64))
-    meas = T.compose(T.relative(pi, pj), T.se3_exp(scale * rnd(64)))
-    z = torch.zeros(6, dtype=torch.float64)
-
-    def edge(a, b, P, Q, M):
-        return PG._edge_residual(T.retract(P, a), T.retract(Q, b), M)
-
-    def prior(a, P, M):
-        return T.se3_log(T.compose(T.inverse(M), T.retract(P, a)))
-
-    _, Ji, Jj = PG._edge_residual_jac(pi, pj, meas)
-    for k, J in ((0, Ji), (1, Jj)):
-        ref = vmap(lambda P, Q, M: jacfwd(edge, argnums=k)(z, z, P, Q, M))(pi, pj, meas)
-        np.testing.assert_allclose(J.numpy(), ref.numpy(), atol=1e-8)
-    _, Jp = PG._prior_residual_jac(pi, meas)
-    ref = vmap(lambda P, M: jacfwd(prior)(z, P, M))(pi, meas)
-    np.testing.assert_allclose(Jp.numpy(), ref.numpy(), atol=1e-8)

@@ -159,16 +159,3 @@ def test_ransac_pnp_with_guess_and_batch():
                            pts3d_query=b(_t(pc)), indices=tuple(b(i) for i in idx))
     for k in range(2):
         _same_result(R.RansacResult(*(x[k] for x in batched)), ref)
-
-
-def test_sample_indices_contract():
-    valid = torch.from_numpy(np.random.default_rng(0).random((2, 50)) > 0.6)
-    g1 = torch.Generator().manual_seed(3)
-    g2 = torch.Generator().manual_seed(3)
-    a = R._sample_indices(g1, valid, 64, 6)
-    assert a.shape == (2, 64, 6)
-    assert bool(torch.gather(valid, 1, a.reshape(2, -1)).all())
-    assert torch.equal(a, R._sample_indices(g2, valid, 64, 6))
-    # no valid slot: index 0 (a zero-inlier hypothesis), as the JAX twin
-    none = R._sample_indices(g1, torch.zeros(1, 10, dtype=torch.bool), 4, 3)
-    assert int(none.max()) == 0

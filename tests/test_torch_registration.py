@@ -167,8 +167,9 @@ def test_unported_correspondence_modes_raise(sigs):
                     node_capacity=8, words_per_frame=K, device="cpu")
     _, pm2 = _memories(sigs)
     pm.signatures = pm2.signatures
-    with pytest.raises(NotImplementedError):
-        pm.compute_transform(1, 2, CAM, torch.Generator())
+    # Vis/CorNNType 7 (GMS) is ported (tests/test_torch_gms.py): it
+    # registers consecutive nodes
+    assert pm.compute_transform(1, 2, CAM, torch.Generator())[0] is not None
     # Vis/CorType 1 (optical flow: tests/test_torch_flow_imu.py) and
     # Vis/CorNNType 6 (the matcher: tests/test_torch_superglue.py) are
     # ported; signatures without their images or float descriptors register

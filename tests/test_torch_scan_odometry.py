@@ -98,9 +98,13 @@ def test_lost_on_garbage_and_factory():
 
     p = Parameters(ICP).set("Reg/Strategy", 1)
     assert isinstance(create_odometry(None, p, device="cpu"), OdometryScanF2M)
-    for strategy in ("f2f", "mono"):
-        with pytest.raises(NotImplementedError):
-            create_odometry(None, None, strategy=strategy)
+    # F2F and mono are ported (tests/test_torch_odometry_f2f.py,
+    # tests/test_torch_odometry_mono.py)
+    from rtabmap_tpu_torch.odometry.f2f import OdometryF2F
+    from rtabmap_tpu_torch.odometry.mono import OdometryMono
+
+    for strategy, cls in (("f2f", OdometryF2F), ("mono", OdometryMono)):
+        assert isinstance(create_odometry(None, None, strategy=strategy, device="cpu"), cls)
     # Odom/Strategy 0, Reg/Strategy 0: the visual F2M odometry
     from rtabmap_tpu_torch.geometry.camera import CameraModel
     from rtabmap_tpu_torch.odometry.f2m import OdometryF2M

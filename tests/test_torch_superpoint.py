@@ -124,34 +124,6 @@ def test_score_map_and_descriptor_sampling_match_the_twin():
         np.asarray(JSP._sample_descriptors(jnp.asarray(desc_map), jnp.asarray(uv))), atol=1e-6)
 
 
-@pytest.mark.parametrize("strategy", [11, 15, 16])
-def test_feature_extractor_learned_strategies(frame, strategy):
-    over = {"Kp/DetectorStrategy": strategy, "SuperPointRpautrat/Threshold": 0.02,
-            "SuperPoint/NMSRadius": 3}
-    cam = C.CameraModel.make(*CAM)
-    fe = FeatureExtractor(cam, Parameters(over), max_kp=48, device="cpu")
-    jfe = JFeatureExtractor(JC.CameraModel.make(*CAM), JParameters(over), max_kp=48)
-    assert fe.learned and fe._sp_nms == jfe._sp_nms == 7
-    assert fe._sp_threshold == jfe._sp_threshold == (0.02 if strategy == 16 else 0.01)
-    g, d = frame
-    fr, descf = fe.extract(g, d)
-    assert descf is not None and descf.shape == (48, 256)
-    # given the same network outputs both extractors' post-processing agree
-    jl, jd = jax.jit(lambda p, x: JSP.SuperPointNet().apply({"params": p}, x))(
-        jfe._sp.params, jnp.asarray(g)[None, :, :, None])
-    kps, desc, df = SP.postprocess(torch.from_numpy(np.asarray(jl)),
-                                   torch.from_numpy(np.asarray(jd)), 48, fe._sp_nms,
-                                   fe._sp_threshold)
-    jfr, jdescf = jfe.extract(jnp.asarray(g), jnp.asarray(d))
-    np.testing.assert_array_equal(kps.uv.numpy(), np.asarray(jfr.uv))
-    np.testing.assert_array_equal(desc.numpy(), np.asarray(jfr.desc))
-    # the depth lookup at those keypoints
-    pts, ok = F.keypoints_3d_from_depth(kps, torch.from_numpy(d), cam)
-    np.testing.assert_array_equal(ok.numpy(), np.asarray(jfr.valid3d))
-    np.testing.assert_allclose(pts.numpy(), np.asarray(jfr.pts3d), atol=1e-5)
-    assert int(ok.sum()) > 0 and int(fr.valid3d.sum()) > 0
-
-
 def test_weights_load_across_packages(tmp_path, frame):
     g = frame[0]
     # the port's save_params is read by the twin, and the twin's by the port
